@@ -1,0 +1,88 @@
+// Shared pieces of the port's Hopper kernels: value loads that widen
+// bf16 to f32, the small kernel-argument structs, and the cooperative
+// launch used by the chained (multi-level) kernels.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define SAAMGE_MAX_DIAGS 64
+#define SAAMGE_MAX_ROOTS 32
+#define SAAMGE_MAX_BOFFS 27
+#define SAAMGE_THREADS 256
+
+// Stencil offsets (row-aligned DIA: vals[k, i] = A[i, i + off[k]]).
+struct Offsets {
+  int k;
+  int off[SAAMGE_MAX_DIAGS];
+};
+
+// 1 / tau of each chained root.
+struct Taus {
+  int k;
+  float inv_tau[SAAMGE_MAX_ROOTS];
+};
+
+__device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+
+// (A x)[i] of a row-aligned DIA operator; x is haloed and t = i + halo.
+// Taps are summed in offset order, as the plain versions do.  x is not
+// __restrict__: the chained kernels rewrite it between grid barriers, so
+// its loads must not take the non-coherent read-only path.
+template <typename V>
+__device__ __forceinline__ float stencil_row(const V* __restrict__ vals,
+                                             const Offsets& offs, long n,
+                                             long i, const float* x,
+                                             long t) {
+  float ax = 0.f;
+  for (int k = 0; k < offs.k; ++k)
+    ax += ld(vals, (long)k * n + i) * x[t + offs.off[k]];
+  return ax;
+}
+
+static inline Offsets make_offsets(const int* off, int k) {
+  Offsets o;
+  o.k = k;
+  for (int i = 0; i < k; ++i) o.off[i] = off[i];
+  return o;
+}
+
+static inline Taus make_taus(const float* inv_tau, int k) {
+  Taus t;
+  t.k = k;
+  for (int i = 0; i < k; ++i) t.inv_tau[i] = inv_tau[i];
+  return t;
+}
+
+// Launch `func` cooperatively with as many blocks as can be resident at
+// once (capped by the work), so that grid-wide barriers are legal.  A
+// refused launch returns its error; nothing falls back.
+static inline cudaError_t launch_cooperative(const void* func, long work,
+                                             void** args,
+                                             cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int coop = 0, sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, func,
+                                                    SAAMGE_THREADS, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  long need = (work + SAAMGE_THREADS - 1) / SAAMGE_THREADS;
+  long grid = (long)per_sm * sms;
+  if (need < grid) grid = need;
+  if (grid < 1) grid = 1;
+  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid),
+                                  dim3(SAAMGE_THREADS), args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}

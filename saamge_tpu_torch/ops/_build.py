@@ -1,0 +1,126 @@
+"""Build of the hand-written CUDA kernels.
+
+All ``saamge_tpu_torch/csrc/*.cu`` files are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, cached
+under ``build/saamge_tpu_torch/`` of the checkout and keyed by a hash of
+the sources, and loaded with ``ctypes``.  The build happens at the first
+kernel launch, never at import.  A failed build or load raises: there
+is no fallback that would hide the card."""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "saamge_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+MAX_ROOTS = 32          # SAAMGE_MAX_ROOTS of csrc/common.cuh
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None          # wall time of the build in this process
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (CUDA_HOME or PATH)")
+    return found
+
+
+def _declare(lib) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.saamge_stencil.argtypes = [I, P, I, P, I, I, I, P, P, P, F, P, P]
+    lib.saamge_wavefront.argtypes = [P, I, P, I, I, I, P, I, I, P, P, P,
+                                     P, P, P, P]
+    lib.saamge_window_R.argtypes = [I, P, P, P, P, P]
+    lib.saamge_window_P.argtypes = [I, P, P, P, P, P]
+    lib.saamge_mid_chain.argtypes = [P, I, P, I, P, I, I, P, P, P, P, P,
+                                     P, P]
+    for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
+                 "saamge_window_P", "saamge_mid_chain"):
+        getattr(lib, name).restype = I
+    lib.saamge_error_string.argtypes = [I]
+    lib.saamge_error_string.restype = ctypes.c_char_p
+
+
+def load():
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        so = os.path.join(BUILD_DIR, f"libsaamge_kernels_{_digest()}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp]
+                   + [p for p in sources() if p.endswith(".cu")])
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        _declare(lib)
+        build_seconds = time.perf_counter() - t0
+        _lib = lib
+        return lib
+
+
+def check_launch(lib, code: int, what: str) -> None:
+    """Raise if the C launcher reported a CUDA error."""
+    if code != 0:
+        msg = lib.saamge_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def int_array(values):
+    """Host int32 array for a launcher argument; keep the returned object
+    alive across the call and pass ``ctypes.addressof`` of it."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def float_array(values):
+    values = [float(v) for v in values]
+    return (ctypes.c_float * max(len(values), 1))(*values)
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

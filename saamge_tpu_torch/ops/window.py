@@ -1,0 +1,110 @@
+"""Tent restriction R and prolongation P between the fine node grid and
+the slot-major padded coarse layout (coarse dof (brick p, slot s) at
+``s * NB + p``), with ``Rst`` the (bs, box, NB) tent blocks:
+
+    R:  yc[s, p] = sum_w Rst[s, w, p] * r[window(p, w)]
+    P:  the adjoint, summing the planes that neighbouring bricks share.
+
+The wrappers launch the kernels of csrc/window.cu (replacing
+saamge_tpu/ops/pallas_window.py `_build_window_R` / `_build_window_P`)
+for CUDA tensors and run the plain versions for CPU tensors.  Both read
+Rst widened to f32 and keep r, xc and all sums in f32: the numerics of
+the JAX package's XLA apply_R / apply_P with a bf16 Rst, not of its
+window kernels, whose selection matmuls truncate to bf16."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from saamge_tpu_torch._device import check, is_cuda
+from saamge_tpu_torch.ops import _build
+
+
+def _dims(bricks, brick_elems):
+    nodes = tuple(B * b + 1 for B, b in zip(bricks, brick_elems))
+    box = 1
+    for b in brick_elems:
+        box *= b + 1
+    NB = bricks[0] * bricks[1] * bricks[2]
+    return nodes, box, NB
+
+
+def box_index(bricks, brick_elems, device) -> torch.Tensor:
+    """(box, NB) fine-node ids of every brick's closed box:
+    idx[(u*(by+1)+v)*(bz+1)+w, p] = node (px*bx+u, py*by+v, pz*bz+w)."""
+    nodes, box, NB = _dims(bricks, brick_elems)
+    bx, by, bz = brick_elems
+    ids = torch.arange(nodes[0] * nodes[1] * nodes[2],
+                       device=device).view(nodes)
+    win = ids.unfold(0, bx + 1, bx).unfold(1, by + 1, by) \
+        .unfold(2, bz + 1, bz)          # (BX, BY, BZ, bx+1, by+1, bz+1)
+    return win.permute(3, 4, 5, 0, 1, 2).reshape(box, NB)
+
+
+def window_R_plain(Rst, r, bricks, brick_elems) -> torch.Tensor:
+    idx = box_index(bricks, brick_elems, r.device)
+    boxes = r.to(torch.float32)[idx]                       # (box, NB)
+    return (Rst.to(torch.float32) * boxes[None]).sum(1).reshape(-1)
+
+
+def window_P_plain(Rst, xc, bricks, brick_elems) -> torch.Tensor:
+    nodes, box, NB = _dims(bricks, brick_elems)
+    bs = Rst.shape[0]
+    C = (Rst.to(torch.float32)
+         * xc.to(torch.float32).view(bs, 1, NB)).sum(0)   # (box, NB)
+    idx = box_index(bricks, brick_elems, xc.device)
+    y = torch.zeros(nodes[0] * nodes[1] * nodes[2], dtype=torch.float32,
+                    device=xc.device)
+    return y.index_add_(0, idx.reshape(-1), C.reshape(-1))
+
+
+def _geom(Rst, bricks, brick_elems):
+    nodes, box, NB = _dims(bricks, brick_elems)
+    check(Rst, "Rst", (torch.float32, torch.bfloat16),
+          (Rst.shape[0], box, NB))
+    return nodes, NB, _build.int_array(
+        list(bricks) + list(brick_elems) + [Rst.shape[0]])
+
+
+def window_R(Rst, r, bricks, brick_elems) -> torch.Tensor:
+    """Fine (n,) vector on the node grid -> (bs * NB,) coarse values."""
+    if not is_cuda(Rst, r):
+        return window_R_plain(Rst, r, bricks, brick_elems)
+    nodes, NB, geom = _geom(Rst, bricks, brick_elems)
+    check(r, "r", torch.float32, (nodes[0] * nodes[1] * nodes[2],))
+    lib = _build.load()
+    yc = torch.empty(Rst.shape[0] * NB, dtype=torch.float32,
+                     device=r.device)
+    with torch.cuda.device(r.device):
+        code = lib.saamge_window_R(
+            int(Rst.dtype == torch.bfloat16), Rst.data_ptr(),
+            ctypes.addressof(geom), r.data_ptr(), yc.data_ptr(),
+            _build.stream_ptr(r.device))
+    _build.check_launch(lib, code, "window_R")
+    window_R.launches += 1
+    return yc
+
+
+def window_P(Rst, xc, bricks, brick_elems) -> torch.Tensor:
+    """(bs * NB,) coarse values -> fine (n,) vector on the node grid."""
+    if not is_cuda(Rst, xc):
+        return window_P_plain(Rst, xc, bricks, brick_elems)
+    nodes, NB, geom = _geom(Rst, bricks, brick_elems)
+    check(xc, "xc", torch.float32, (Rst.shape[0] * NB,))
+    lib = _build.load()
+    y = torch.empty(nodes[0] * nodes[1] * nodes[2], dtype=torch.float32,
+                    device=xc.device)
+    with torch.cuda.device(xc.device):
+        code = lib.saamge_window_P(
+            int(Rst.dtype == torch.bfloat16), Rst.data_ptr(),
+            ctypes.addressof(geom), xc.data_ptr(), y.data_ptr(),
+            _build.stream_ptr(xc.device))
+    _build.check_launch(lib, code, "window_P")
+    window_P.launches += 1
+    return y
+
+
+window_R.launches = 0
+window_P.launches = 0

@@ -1,0 +1,422 @@
+"""Structured (brick) hierarchy of the flagship solve, in PyTorch.
+
+Port of saamge_tpu/solve/structured.py for its flagship configuration:
+three levels on a Cartesian brick partitioning with a superbrick
+coarsest level, bf16 (or f32) smoother twin, tent blocks and mid
+blocks, and an f32 PCG operator.  One V-cycle runs
+
+  fine pre-smoothing sweep + residual   (ops/wavefront.py, kernel)
+  tent restriction R                    (ops/window.py, kernel)
+  mid pre-chain + residual              (ops/midsmooth.py, kernel)
+  superbrick restriction, dense coarsest inverse, prolongation (torch)
+  mid post-chain                        (ops/midsmooth.py, kernel)
+  tent prolongation P                   (ops/window.py, kernel)
+  fine post-smoothing sweep             (ops/wavefront.py, kernel)
+
+and PCG's operator is the f32 stencil matvec (ops/stencil.py, kernel).
+The host builders are numpy re-implementations of the JAX module's
+(which imports jax and so cannot be used here).
+
+Fine vectors are flat and haloed (ops/sparse.DIA), not the TPU's
+(rows, 128) tiling; the z-lane layout is not ported."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from saamge_tpu_torch.ops.midsmooth import mid_chain
+from saamge_tpu_torch.ops.sparse import DIA
+from saamge_tpu_torch.ops.stencil import stencil_h
+from saamge_tpu_torch.ops.wavefront import wavefront_smooth
+from saamge_tpu_torch.ops.window import window_P, window_R
+
+
+# ---------------------------------------------------------------------------
+# host-side builders (numpy)
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickGeometry:
+    """Static geometry of a brick-partitioned structured hex mesh.
+
+    Nodes per dim are (BX*bx+1, BY*by+1, BZ*bz+1); fine dof id is
+    x-major lexicographic (fem/mesh.py hex_mesh vid)."""
+
+    bricks: Tuple[int, int, int]       # (BX, BY, BZ)
+    brick_elems: Tuple[int, int, int]  # (bx, by, bz)
+
+    @property
+    def nodes(self):
+        (BX, BY, BZ), (bx, by, bz) = self.bricks, self.brick_elems
+        return (BX * bx + 1, BY * by + 1, BZ * bz + 1)
+
+    @property
+    def num_bricks(self):
+        return int(np.prod(self.bricks))
+
+    @property
+    def box(self):
+        bx, by, bz = self.brick_elems
+        return (bx + 1) * (by + 1) * (bz + 1)
+
+
+def coarse_brick_numbering(rels, mis_numcoarsedof: np.ndarray):
+    """Group coarse dofs by the master brick of their MIS (master = min
+    containing AE) and assign slots; returns (brick, slot, bs, counts)
+    per coarse dof (reference aggregates.cpp:1610-1730)."""
+    nm = rels.num_mises
+    ncd = np.asarray(mis_numcoarsedof, dtype=np.int64)
+    m2a = rels.mis_to_AE
+    sizes = m2a.row_sizes()
+    master = np.full(nm, np.iinfo(np.int64).max, dtype=np.int64)
+    np.minimum.at(master, np.repeat(np.arange(nm), sizes), m2a.indices)
+    cd_mis = np.repeat(np.arange(nm), ncd)
+    cd_brick = master[cd_mis]
+    counts = np.bincount(cd_brick, minlength=rels.nparts)
+    bs = int(counts.max())
+    order = np.argsort(cd_brick, kind="stable")
+    slot = np.empty(len(cd_mis), dtype=np.int64)
+    starts = np.zeros(rels.nparts + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot[order] = np.arange(len(cd_mis)) - starts[cd_brick[order]]
+    return cd_brick, slot, bs, counts
+
+
+def build_structured_interp(rels, P: sp.csr_matrix,
+                            mis_numcoarsedof: np.ndarray,
+                            geo: BrickGeometry):
+    """Dense per-brick tent blocks: returns (Rst (NB, bs, box) f32,
+    cd_brick, slot, bs) with Rst[p, s, boxpos] = P[fine dof at boxpos of
+    brick p's closed box, coarse dof (p, s)]."""
+    (BX, BY, BZ) = geo.bricks
+    (bx, by, bz) = geo.brick_elems
+    NXn, NYn, NZn = geo.nodes
+    cd_brick, slot, bs, _ = coarse_brick_numbering(rels, mis_numcoarsedof)
+    Pc = P.tocsc()
+    n_c = Pc.shape[1]
+    if len(cd_brick) != n_c:
+        raise ValueError(f"{len(cd_brick)} numbered coarse dofs, P has {n_c}")
+    rows = Pc.indices
+    col_of = np.repeat(np.arange(n_c), np.diff(Pc.indptr))
+    ix, rem = np.divmod(rows, NYn * NZn)
+    iy, iz = np.divmod(rem, NZn)
+    pb = cd_brick[col_of]
+    pz = pb % BZ
+    py = (pb // BZ) % BY
+    px = pb // (BY * BZ)
+    u, v, w = ix - px * bx, iy - py * by, iz - pz * bz
+    ok = ((u >= 0) & (u <= bx) & (v >= 0) & (v <= by)
+          & (w >= 0) & (w <= bz))
+    if not np.all(ok):
+        raise ValueError("tent column escapes its master brick's closed "
+                         "box: partitioning is not brick-structured")
+    boxpos = (u * (by + 1) + v) * (bz + 1) + w
+    Rst = np.zeros((geo.num_bricks, bs, geo.box), dtype=np.float32)
+    Rst[pb, slot[col_of], boxpos] = Pc.data
+    return Rst, cd_brick, slot, bs
+
+
+def build_structured_interp2(rels1, P1: sp.csr_matrix,
+                             mis_numcoarsedof1: np.ndarray,
+                             geo: BrickGeometry, supers,
+                             cd_brick: np.ndarray, slot: np.ndarray,
+                             bs: int):
+    """Block-diagonal level-2 tent blocks over superbricks: returns
+    (Rst1 (bs2, win, NB2) f32, cd2_brick, slot2, bs2), win = bs*sx*sy*sz
+    with window position ((s*sx+lx)*sy+ly)*sz+lz."""
+    (BX, BY, BZ) = geo.bricks
+    SX, SY, SZ = supers
+    if BX % SX or BY % SY or BZ % SZ:
+        raise ValueError("supers must divide the brick grid evenly")
+    sx, sy, sz = BX // SX, BY // SY, BZ // SZ
+    cd2_brick, slot2, bs2, _ = coarse_brick_numbering(rels1,
+                                                      mis_numcoarsedof1)
+    NB2 = SX * SY * SZ
+    Pc = P1.tocsc()
+    n2 = Pc.shape[1]
+    if len(cd2_brick) != n2:
+        raise ValueError(f"{len(cd2_brick)} numbered level-2 dofs, P1 has "
+                         f"{n2}")
+    rows = Pc.indices
+    col_of = np.repeat(np.arange(n2), np.diff(Pc.indptr))
+    p, s = cd_brick[rows], slot[rows]
+    pz, py, px = p % BZ, (p // BZ) % BY, p // (BY * BZ)
+    S = cd2_brick[col_of]
+    Sz, Sy, Sx = S % SZ, (S // SZ) % SY, S // (SY * SZ)
+    lx, ly, lz = px - Sx * sx, py - Sy * sy, pz - Sz * sz
+    ok = ((lx >= 0) & (lx < sx) & (ly >= 0) & (ly < sy)
+          & (lz >= 0) & (lz < sz))
+    if not np.all(ok):
+        raise ValueError("level-2 tent column escapes its master "
+                         "superbrick: the 3rd-level partitioning is not "
+                         "superbrick-structured")
+    winpos = ((s * sx + lx) * sy + ly) * sz + lz
+    Rst1 = np.zeros((bs2, bs * sx * sy * sz, NB2), dtype=np.float32)
+    Rst1[slot2[col_of], winpos, S] = Pc.data
+    return Rst1, cd2_brick, slot2, bs2
+
+
+def brick_block_from_csr(Ac: sp.csr_matrix, cd_brick: np.ndarray,
+                         slot: np.ndarray, bs: int, bricks):
+    """Mid operator in the slot-major padded brick-block form: returns
+    (blocks (k, bs, bs, NB) f64, doffs, rects) with blocks[k, s1, s2, p]
+    = Ac[(p, s1), (p + doffs[k], s2)] and rects[k] = (r1, r2) the
+    used-slot rectangle of offset k, made direction-symmetric."""
+    BX, BY, BZ = bricks
+    coo = Ac.tocoo()
+    p, q = cd_brick[coo.row], cd_brick[coo.col]
+    dx = q // (BY * BZ) - p // (BY * BZ)
+    dy = (q // BZ) % BY - (p // BZ) % BY
+    dz = q % BZ - p % BZ
+    if max(np.abs(dx).max(), np.abs(dy).max(), np.abs(dz).max()) > 1:
+        raise ValueError("coarse coupling beyond brick neighbors: "
+                         "partitioning is not brick-structured")
+    dkey = (dx + 1) * 9 + (dy + 1) * 3 + (dz + 1)
+    used = np.unique(dkey)
+    kmap = np.full(27, -1, dtype=np.int64)
+    kmap[used] = np.arange(len(used))
+    NB = BX * BY * BZ
+    blocks = np.zeros((len(used), bs, bs, NB), dtype=np.float64)
+    s1a, s2a = slot[coo.row], slot[coo.col]
+    ki = kmap[dkey]
+    np.add.at(blocks, (ki, s1a, s2a, p), coo.data)
+    doffs = tuple((int(u) // 9 - 1, (int(u) // 3) % 3 - 1, int(u) % 3 - 1)
+                  for u in used)
+    rects = [(int(s1a[ki == j].max()) + 1, int(s2a[ki == j].max()) + 1)
+             for j in range(len(used))]
+    dmap = {d: j for j, d in enumerate(doffs)}
+    for j, d in enumerate(doffs):
+        jn = dmap.get((-d[0], -d[1], -d[2]))
+        if jn is not None:
+            rects[j] = (max(rects[j][0], rects[jn][1]),
+                        max(rects[j][1], rects[jn][0]))
+    return blocks, doffs, tuple(rects)
+
+
+# ---------------------------------------------------------------------------
+# device-side hierarchy
+
+
+class StructuredHierarchy(torch.nn.Module):
+    """3-level structured hierarchy.  Arrays are buffers, so ``.to(dev)``
+    moves it; on a CUDA device every kernel of the cycle is a
+    hand-written one, on the CPU each runs its plain torch version.
+
+    Buffers: A0_vals (k, n) f32 PCG operator; A0s_vals (k, n) smoother
+    twin; dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
+    blocks; A1_blocks (k1, bs, bs, NB) mid operator; dinv1 (bs*NB,) mid
+    scaling (0 on padding slots); Rst1 (bs2, win, NB2) superbrick tent
+    blocks; flat_id / flat_id2 real-dof ids in the padded layouts; Ainv
+    the coarsest inverse."""
+
+    def __init__(self, *, A0_vals, A0s_vals, offsets, dinv0, taus0, Rst,
+                 A1_blocks, doffs, rects, dinv1, taus1, Rst1, flat_id,
+                 flat_id2, Ainv, geo: BrickGeometry, supers):
+        super().__init__()
+        self.offsets = tuple(int(o) for o in offsets)
+        self.n = int(A0_vals.shape[1])
+        self.geo = geo
+        self.supers = tuple(int(s) for s in supers)
+        self.taus0 = tuple(float(t) for t in taus0)
+        self.taus1 = tuple(float(t) for t in taus1)
+        self.doffs = tuple(tuple(int(c) for c in d) for d in doffs)
+        self.rects = tuple((int(a), int(b)) for a, b in rects)
+        self.register_buffer("A0_vals", A0_vals)
+        self.register_buffer("A0s_vals", A0s_vals)
+        halo = DIA(A0_vals, self.offsets, self.n).halo
+        self.register_buffer("dinv0h", torch.nn.functional.pad(
+            dinv0.to(torch.float32), (halo, halo)))
+        self.register_buffer("Rst", Rst)
+        self.register_buffer("A1_blocks", A1_blocks)
+        self.register_buffer("dinv1", dinv1.to(torch.float32))
+        self.register_buffer("Rst1", Rst1)
+        self.register_buffer("flat_id", flat_id.to(torch.int64))
+        self.register_buffer("flat_id2", flat_id2.to(torch.int64))
+        self.register_buffer("Ainv", Ainv.to(torch.float32))
+
+    # -- operators and layouts -------------------------------------------
+    @property
+    def A0(self) -> DIA:
+        return DIA(self.A0_vals, self.offsets, self.n)
+
+    @property
+    def A0s(self) -> DIA:
+        return DIA(self.A0s_vals, self.offsets, self.n)
+
+    @property
+    def bs(self) -> int:
+        return int(self.Rst.shape[0])
+
+    @property
+    def n_flat(self) -> int:
+        return self.bs * self.geo.num_bricks
+
+    def matvec0(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x, the PCG operator (f32 values)."""
+        A0 = self.A0
+        return A0.unpad(stencil_h("spmv", A0, A0.pad(x)))
+
+    def apply_R(self, res: torch.Tensor) -> torch.Tensor:
+        return window_R(self.Rst, res, self.geo.bricks,
+                        self.geo.brick_elems)
+
+    def apply_P(self, xc: torch.Tensor) -> torch.Tensor:
+        return window_P(self.Rst, xc, self.geo.bricks, self.geo.brick_elems)
+
+    # -- coarsest level (plain torch, as the JAX package leaves it to XLA)
+    def _super_dims(self):
+        (BX, BY, BZ), (SX, SY, SZ) = self.geo.bricks, self.supers
+        return (SX, SY, SZ), (BX // SX, BY // SY, BZ // SZ)
+
+    def apply_R1(self, r1: torch.Tensor) -> torch.Tensor:
+        """Superbrick tent restriction of a slot-major mid vector:
+        (bs * NB,) -> (bs2 * NB2,)."""
+        (SX, SY, SZ), (sx, sy, sz) = self._super_dims()
+        W = r1.view(self.bs, SX, sx, SY, sy, SZ, sz) \
+            .permute(0, 2, 4, 6, 1, 3, 5) \
+            .reshape(self.bs * sx * sy * sz, SX * SY * SZ)
+        return (self.Rst1.to(torch.float32) * W[None]).sum(1).reshape(-1)
+
+    def apply_P1(self, y2: torch.Tensor) -> torch.Tensor:
+        """Adjoint of apply_R1: (bs2 * NB2,) -> (bs * NB,)."""
+        (SX, SY, SZ), (sx, sy, sz) = self._super_dims()
+        bs2, _, NB2 = self.Rst1.shape
+        W = (self.Rst1.to(torch.float32)
+             * y2.view(bs2, 1, NB2)).sum(0)
+        return W.view(self.bs, sx, sy, sz, SX, SY, SZ) \
+            .permute(0, 4, 1, 5, 2, 6, 3).reshape(-1)
+
+    def coarsest_correct(self, r1: torch.Tensor) -> torch.Tensor:
+        rc2 = self.apply_R1(r1)
+        y2 = torch.zeros_like(rc2)
+        y2[self.flat_id2] = self.Ainv @ rc2[self.flat_id2]
+        return self.apply_P1(y2)
+
+    def mid_correct(self, rc: torch.Tensor) -> torch.Tensor:
+        """Pre mid-chain (+ residual), coarsest correction, post
+        mid-chain, on the slot-major padded mid layout."""
+        args = (self.A1_blocks, self.doffs, self.rects, self.geo.bricks,
+                self.taus1)
+        x1, r1 = mid_chain(*args, rc, self.dinv1, torch.zeros_like(rc),
+                           emit_res=True)
+        x1 = x1 + self.coarsest_correct(r1)
+        return mid_chain(*args, rc, self.dinv1, x1)
+
+    def vcycle(self, b: torch.Tensor) -> torch.Tensor:
+        """One V-cycle from a zero initial guess (tg_cycle_atb,
+        reference tg.cpp:91, on the structured formats)."""
+        A0s = self.A0s
+        bh = A0s.pad(b)
+        xh, resh = wavefront_smooth(A0s, self.taus0, bh, self.dinv0h,
+                                    torch.zeros_like(bh),
+                                    emit_residual=True)
+        xc = self.mid_correct(self.apply_R(A0s.unpad(resh)))
+        xh = xh + A0s.pad(self.apply_P(xc))
+        xh = wavefront_smooth(A0s, self.taus0, bh, self.dinv0h, xh)
+        return A0s.unpad(xh)
+
+
+def _f32_inv_taus(roots) -> tuple:
+    """1/tau of each root, rounded to f32 as the JAX package stores it."""
+    return tuple(float(np.float32(1.0 / float(t)))
+                 for t in np.asarray(roots))
+
+
+def compile_structured(ml, geo: BrickGeometry, super_bricks,
+                       smoother_dtype=torch.bfloat16,
+                       rp_dtype=torch.bfloat16,
+                       mid_dtype=torch.bfloat16,
+                       device="cpu") -> StructuredHierarchy:
+    """Build the structured hierarchy from a 3-level host setup product
+    on a brick partitioning with a superbrick coarsest level (the
+    flagship configuration; JAX counterpart compile_structured with
+    super_bricks, window_contract, wavefront and the resident mid
+    chain).  ``smoother_dtype``, ``rp_dtype`` and ``mid_dtype`` are the
+    storage dtypes of the fine smoother twin, the tent blocks (Rst and
+    Rst1) and the mid blocks; the PCG operator is always f32."""
+    if len(ml.levels) != 2:
+        raise ValueError("the structured port needs a 3-level setup "
+                         f"(2 two-grid levels), got {len(ml.levels)}")
+    lv0 = ml.levels[0]
+    tg0 = lv0.tg_data
+    if tg0.smooth_interp or ml.levels[1].tg_data.smooth_interp:
+        raise ValueError("the structured path needs tentative P and P1")
+    pd0 = tg0.poly_data
+    if pd0.roots2 is not None and len(pd0.roots2):
+        raise ValueError("only single-chain root families are ported")
+    A0 = DIA.from_csr(lv0.A, torch.float32, max_diags=64)
+    Rst_bm, cd_brick, slot, bs = build_structured_interp(
+        lv0.rels, tg0.tent_interp, tg0.interp_data.mis_numcoarsedof, geo)
+    NB = geo.num_bricks
+    flat_id = slot * NB + cd_brick
+
+    tg1 = ml.levels[1].tg_data
+    blocks, doffs, rects = brick_block_from_csr(
+        tg0.Ac.tocsr(), cd_brick, slot, bs, geo.bricks)
+    dinv1 = np.zeros(NB * bs)
+    dinv1[flat_id] = np.asarray(tg1.poly_data.dinv, np.float64)
+    Rst1, cd2_brick, slot2, _ = build_structured_interp2(
+        ml.levels[1].rels, tg1.tent_interp,
+        tg1.interp_data.mis_numcoarsedof, geo, super_bricks, cd_brick,
+        slot, bs)
+    flat_id2 = slot2 * int(np.prod(super_bricks)) + cd2_brick
+    Ainv = np.linalg.inv(np.asarray(tg1.Ac.todense(), dtype=np.float64))
+
+    t = torch.as_tensor
+    h = StructuredHierarchy(
+        A0_vals=A0.vals, A0s_vals=A0.vals.to(smoother_dtype),
+        offsets=A0.offsets,
+        dinv0=t(np.asarray(pd0.dinv, np.float64)),
+        taus0=_f32_inv_taus(pd0.roots),
+        Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0))).to(rp_dtype),
+        A1_blocks=t(blocks).to(torch.float32).to(mid_dtype),
+        doffs=doffs, rects=rects, dinv1=t(dinv1),
+        taus1=_f32_inv_taus(tg1.poly_data.roots),
+        Rst1=t(Rst1).to(rp_dtype), flat_id=t(flat_id),
+        flat_id2=t(flat_id2), Ainv=t(Ainv), geo=geo, supers=super_bricks)
+    return h.to(device)
+
+
+# ---------------------------------------------------------------------------
+# solves
+
+
+def struct_vcycle_apply(h: StructuredHierarchy, b: torch.Tensor):
+    return h.vcycle(b.to(torch.float32))
+
+
+def struct_pcg_solve(h: StructuredHierarchy, b: torch.Tensor,
+                     rel_tol: float = 1e-6, abs_tol: float = 0.0,
+                     max_iter: int = 200):
+    """PCG with MFEM CGSolver semantics, preconditioned by one V-cycle;
+    returns (x, iterations, final preconditioned residual norm^2).
+
+    The loop is Python: the stopping test ``nom > lim`` is read on the
+    host once per iteration (one device sync per iteration).  The JAX
+    package runs the same loop on device (lax.while_loop); capturing it
+    in a CUDA graph is later work."""
+    b = b.to(torch.float32)
+    z = h.vcycle(b)
+    nom = torch.dot(z, b)
+    lim = torch.clamp(nom * rel_tol * rel_tol, min=abs_tol * abs_tol)
+    x = torch.zeros_like(b)
+    r = b
+    d = z
+    Ad = h.matvec0(d)
+    it = 0
+    while it < max_iter and bool(nom > lim):
+        alpha = nom / torch.dot(d, Ad)
+        x = x + alpha * d
+        r = r - alpha * Ad
+        z = h.vcycle(r)
+        betanom = torch.dot(r, z)
+        d = z + (betanom / nom) * d
+        Ad = h.matvec0(d)
+        nom = betanom
+        it += 1
+    return x, it, nom

@@ -1,0 +1,96 @@
+"""Port tent restriction / prolongation (saamge_tpu_torch/ops/window.py)
+against the JAX package on the flagship n=16 setup: the XLA
+apply_R / apply_P of a bf16-Rst hierarchy (same numerics: bf16 Rst,
+f32 everything else), the Pallas window kernels (interpret mode; they
+truncate window values to bf16), and the host tent CSR."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from saamge_tpu.solve import structured as JS
+
+from saamge_tpu_torch import compile_structured, flagship_problem
+from saamge_tpu_torch.ops.window import (box_index, window_P,
+                                         window_R)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    ml, _, geo, supers = flagship_problem(n=16, brick=4, supers=(2, 2, 2))
+    jgeo = JS.BrickGeometry(geo.bricks, geo.brick_elems)
+    h_xla = JS.compile_structured(ml, jgeo, rp_dtype=jnp.bfloat16,
+                                  super_bricks=supers)
+    h_win = JS.compile_structured(ml, jgeo, rp_dtype=jnp.bfloat16,
+                                  super_bricks=supers, window_contract=True)
+    assert h_win.Wc is not None and h_xla.Wc is None
+    h = compile_structured(ml, geo, supers)
+    rng = np.random.default_rng(5)
+    r = rng.standard_normal(h.n).astype(np.float32)
+    xc = rng.standard_normal(h.n_flat).astype(np.float32)
+    return ml, h, h_xla, h_win, r, xc
+
+
+def _port(h, which, v):
+    f = window_R if which == "R" else window_P
+    return f(h.Rst, torch.as_tensor(v), h.geo.bricks,
+             h.geo.brick_elems).numpy()
+
+
+def _jax(hj, which, v):
+    f = hj.apply_R if which == "R" else hj.apply_P
+    return np.asarray(f(jnp.asarray(v)))
+
+
+@pytest.mark.parametrize("which", ["R", "P"])
+def test_window_matches_xla_apply(setup, which):
+    _, h, h_xla, _, r, xc = setup
+    v = r if which == "R" else xc
+    ref = _jax(h_xla, which, v)
+    got = _port(h, which, v)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("which", ["R", "P"])
+def test_window_matches_pallas_window(setup, which):
+    """Within the bf16-truncation class of the TPU window kernels."""
+    _, h, _, h_win, r, xc = setup
+    v = r if which == "R" else xc
+    ref = _jax(h_win, which, v)
+    got = _port(h, which, v)
+    assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+def test_window_matches_tent_csr(setup):
+    """With f32 tent blocks, R and P are the host tent P^T and P on the
+    real (non-padding) coarse slots; padding slots restrict to zero."""
+    ml, h, _, _, r, xc = setup
+    h32 = compile_structured(ml, h.geo, h.supers, rp_dtype=torch.float32)
+    P = ml.levels[0].tg_data.tent_interp.tocsr()
+    fid = h32.flat_id.numpy()
+    rc = _port(h32, "R", r)
+    rc_ref = P.T @ r.astype(np.float64)
+    assert np.abs(rc[fid] - rc_ref).max() <= 1e-5 * np.abs(rc_ref).max()
+    pad = np.ones(h32.n_flat, bool)
+    pad[fid] = False
+    assert np.all(rc[pad] == 0)
+    xc_flat = np.zeros(h32.n_flat, np.float32)
+    xc_flat[fid] = xc[:len(fid)]
+    y = _port(h32, "P", xc_flat)
+    y_ref = P @ xc[:len(fid)].astype(np.float64)
+    assert np.abs(y - y_ref).max() <= 1e-5 * np.abs(y_ref).max()
+
+
+def test_box_index_matches_extract_boxes():
+    """The plain versions' window map equals the JAX extract_boxes
+    windows on a non-cubic brick grid."""
+    bricks, be = (3, 2, 1), (2, 3, 4)
+    nodes = tuple(B * b + 1 for B, b in zip(bricks, be))
+    r3 = np.random.default_rng(2).standard_normal(nodes).astype(np.float32)
+    ref = np.asarray(JS.extract_boxes(jnp.asarray(r3), be, bricks))
+    idx = box_index(bricks, be, "cpu").numpy()
+    np.testing.assert_array_equal(r3.reshape(-1)[idx], ref)
