@@ -23,9 +23,12 @@ def superbrick_grid(nb: int):
 
 
 def flagship_problem(n: int = 96, brick: int = 8, contrast: float = 2.0,
-                     seed: int = 7, supers=None, theta: float = 1e-4):
+                     seed: int = 7, supers=None, theta: float = 1e-4,
+                     mfree: bool = False):
     """Returns ``(ml, b, geo, supers)``: the host multilevel setup, the
-    right-hand side, the brick geometry and the superbrick grid."""
+    right-hand side, the brick geometry and the superbrick grid.  With
+    ``mfree`` a fifth item ``(em0, c_elem, ess_dofs)`` is added, the
+    matrix-free factors that ``compile_structured(mfree=...)`` takes."""
     from saamge_tpu.api import SpectralAMGSolver
     from saamge_tpu.config import SolverOptions
     from saamge_tpu.fem import assemble
@@ -46,7 +49,7 @@ def flagship_problem(n: int = 96, brick: int = 8, contrast: float = 2.0,
     ess = np.ones(mesh.max_bdr_attr(), dtype=np.int64)
     rng = np.random.default_rng(seed)
     coefs = 10.0 ** rng.uniform(-contrast, contrast, mesh.num_elements)
-    A, b, em, _, _ = assemble.build_discrete_problem(
+    A, b, em, _, ess_dofs = assemble.build_discrete_problem(
         mesh, coef=coefs, rhs=1.0, ess_attr_marker=ess)
     part = partition_cartesian_3d(mesh.elem_centers(), nb, nb, nb)
 
@@ -59,4 +62,10 @@ def flagship_problem(n: int = 96, brick: int = 8, contrast: float = 2.0,
     s = SpectralAMGSolver(A, mesh, em, opts, ess_attr_marker=ess,
                           partitioning=part, coarse_part_override=override)
     geo = BrickGeometry((nb,) * 3, (brick,) * 3)
-    return s.ml, np.asarray(b, np.float64), geo, supers
+    out = (s.ml, np.asarray(b, np.float64), geo, supers)
+    if not mfree:
+        return out
+    fac = assemble.diffusion_factorized(mesh, coefs)
+    if fac is None:
+        raise ValueError("the operator does not factorize per element")
+    return out + ((fac[0], fac[1], ess_dofs),)

@@ -12,14 +12,28 @@ that this module needs no JAX:
   d["dinv1"], d["Rst1"], d["flat_id"], d["flat_id2"], d["Ainv"]
 
 and ``meta`` with "offsets", "n", "hr" (the TPU layout's halo rows),
-"doffs", "rects", "bricks", "brick_elems" and "supers".  Storage dtypes
-are kept (a bf16 array stays bf16)."""
+"doffs", "rects", "bricks", "brick_elems" and "supers".  A capacity
+hierarchy (mfree, hbm_frugal) has in place of the stored operators
+
+  d["A0s.c_h"], d["A0s.m_h"]     (t_rows, 128) matrix-free smoother twin
+  d["A0m.c_h"], d["A0m.m_h"]     the matrix-free PCG operator (in place
+                                 of "A0.vals2")
+  d["K"]                         (8, 8) reference element matrix
+  d["A1kC"]                      per offset (r2, r1p, Lpad) packed blocks
+                                 (in place of "A1d.blocks")
+  d["Wc.rstw"]                   (NBxy, bs, box_xy, Lzp) window-kernel
+                                 layout of the tent blocks (in place of
+                                 "Rst", which is a placeholder there)
+
+Storage dtypes are kept (a bf16 array stays bf16)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, q1_halo
+from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.solve.structured import (BrickGeometry,
                                                StructuredHierarchy)
 
@@ -34,28 +48,58 @@ def _tensor(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True))
 
 
+def _rst_from_window(rstw, bricks, brick_elems) -> torch.Tensor:
+    """Inverse of saamge_tpu/ops/pallas_window.py relayout_rst: the
+    (NBxy, bs, box_xy, Lzp) window layout -> (bs, box, NB)."""
+    (bx, by, bz), (BX, BY, BZ) = brick_elems, bricks
+    rstw = np.asarray(rstw)
+    bs = rstw.shape[1]
+    Rv = rstw[..., :BZ * (bz + 1)].reshape(BX * BY, bs, bx + 1, by + 1, BZ,
+                                           bz + 1)
+    Rst = Rv.transpose(1, 2, 3, 5, 0, 4).reshape(
+        bs, (bx + 1) * (by + 1) * (bz + 1), BX * BY * BZ)
+    return _tensor(np.ascontiguousarray(Rst))
+
+
 def from_jax_arrays(d: dict, meta: dict,
                     device="cpu") -> StructuredHierarchy:
     n = int(meta["n"])
     k = len(meta["offsets"])
-
-    def diagonals(v):
-        return _tensor(np.asarray(v).reshape(k, -1)[:, :n])
-
+    geo = BrickGeometry(tuple(meta["bricks"]), tuple(meta["brick_elems"]))
     lo = int(meta["hr"]) * LANES
-    dinv0 = _tensor(np.asarray(d["dinv0h"]).reshape(-1)[lo:lo + n])
+
+    def unhalo(v):
+        """(t_rows, 128) haloed TPU layout -> the flat (n,) entries."""
+        return _tensor(np.asarray(v).reshape(-1)[lo:lo + n])
+
+    def fine_op(dia_key, mf_key):
+        if dia_key in d:
+            vals = _tensor(np.asarray(d[dia_key]).reshape(k, -1)[:, :n])
+            return DIA(vals, tuple(meta["offsets"]), n)
+        K = tuple(tuple(float(v) for v in row) for row in np.asarray(d["K"]))
+        h = q1_halo(geo.nodes)
+        c, m = (torch.nn.functional.pad(unhalo(d[f"{mf_key}.{f}"]), (h, h))
+                for f in ("c_h", "m_h"))
+        return MatrixFreeQ1(c, m, K, geo.nodes)
+
+    if "A1d.blocks" in d:
+        mid = {"A1_blocks": _tensor(d["A1d.blocks"])}
+    else:
+        NB = geo.num_bricks
+        mid = {"A1_packed": torch.cat([
+            _tensor(np.ascontiguousarray(
+                np.asarray(a)[:r2, :r1, :NB].transpose(1, 0, 2))).reshape(-1)
+            for a, (r1, r2) in zip(d["A1kC"], meta["rects"])])}
     h = StructuredHierarchy(
-        A0_vals=diagonals(d["A0.vals2"]),
-        A0s_vals=diagonals(d["A0s.vals2"]),
-        offsets=meta["offsets"], dinv0=dinv0,
+        A0=fine_op("A0.vals2", "A0m"), A0s=fine_op("A0s.vals2", "A0s"),
+        dinv0=unhalo(d["dinv0h"]),
         taus0=np.asarray(d["taus0"], np.float32).reshape(-1),
-        Rst=_tensor(d["Rst"]), A1_blocks=_tensor(d["A1d.blocks"]),
+        Rst=(_rst_from_window(d["Wc.rstw"], geo.bricks, geo.brick_elems)
+             if "Wc.rstw" in d else _tensor(d["Rst"])),
         doffs=meta["doffs"], rects=meta["rects"],
         dinv1=_tensor(d["dinv1"]),
         taus1=np.asarray(d["taus1"], np.float32).reshape(-1),
         Rst1=_tensor(d["Rst1"]), flat_id=_tensor(d["flat_id"]),
-        flat_id2=_tensor(d["flat_id2"]), Ainv=_tensor(d["Ainv"]),
-        geo=BrickGeometry(tuple(meta["bricks"]),
-                          tuple(meta["brick_elems"])),
-        supers=meta["supers"])
+        flat_id2=_tensor(d["flat_id2"]), Ainv=_tensor(d["Ainv"]), geo=geo,
+        supers=meta["supers"], **mid)
     return h.to(device)

@@ -44,6 +44,44 @@ __device__ __forceinline__ float stencil_row(const V* __restrict__ vals,
   return ax;
 }
 
+// Brick-block mid operator geometry (midsmooth.cu, midmv.cu): the brick
+// grid, the slot count, and per brick offset (dx, dy, dz) its used-slot
+// rectangle (r1, r2).
+struct MidGeom {
+  int BX, BY, BZ, bs, k;
+  int dx[SAAMGE_MAX_BOFFS], dy[SAAMGE_MAX_BOFFS], dz[SAAMGE_MAX_BOFFS];
+  int r1[SAAMGE_MAX_BOFFS], r2[SAAMGE_MAX_BOFFS];
+};
+
+// geom: BX, BY, BZ, bs, then per offset (dx, dy, dz, r1, r2); the caller
+// checks 1 <= k <= SAAMGE_MAX_BOFFS.
+static inline MidGeom make_mid_geom(const int* geom, int k) {
+  MidGeom g;
+  g.BX = geom[0];
+  g.BY = geom[1];
+  g.BZ = geom[2];
+  g.bs = geom[3];
+  g.k = k;
+  for (int j = 0; j < k; ++j) {
+    const int* o = geom + 4 + 5 * j;
+    g.dx[j] = o[0];
+    g.dy[j] = o[1];
+    g.dz[j] = o[2];
+    g.r1[j] = o[3];
+    g.r2[j] = o[4];
+  }
+  return g;
+}
+
+// Brick q = p + doff_k of brick p, or -1 when it leaves the brick grid.
+__device__ __forceinline__ int mid_neighbour(const MidGeom& g, int k, int px,
+                                             int py, int pz) {
+  const int qx = px + g.dx[k], qy = py + g.dy[k], qz = pz + g.dz[k];
+  if (qx < 0 || qx >= g.BX || qy < 0 || qy >= g.BY || qz < 0 || qz >= g.BZ)
+    return -1;
+  return (qx * g.BY + qy) * g.BZ + qz;
+}
+
 static inline Offsets make_offsets(const int* off, int k) {
   Offsets o;
   o.k = k;

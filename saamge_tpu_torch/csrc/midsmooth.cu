@@ -31,12 +31,6 @@
 
 namespace cg = cooperative_groups;
 
-struct MidGeom {
-  int BX, BY, BZ, bs, k;
-  int dx[SAAMGE_MAX_BOFFS], dy[SAAMGE_MAX_BOFFS], dz[SAAMGE_MAX_BOFFS];
-  int r1[SAAMGE_MAX_BOFFS], r2[SAAMGE_MAX_BOFFS];
-};
-
 template <typename V>
 __device__ __forceinline__ float mid_row(const V* __restrict__ blocks,
                                          const MidGeom& g, int NB, int s1,
@@ -45,11 +39,8 @@ __device__ __forceinline__ float mid_row(const V* __restrict__ blocks,
   float ax = 0.f;
   for (int k = 0; k < g.k; ++k) {
     if (s1 >= g.r1[k]) continue;
-    const int qx = px + g.dx[k], qy = py + g.dy[k], qz = pz + g.dz[k];
-    if (qx < 0 || qx >= g.BX || qy < 0 || qy >= g.BY || qz < 0 ||
-        qz >= g.BZ)
-      continue;
-    const int q = (qx * g.BY + qy) * g.BZ + qz;
+    const int q = mid_neighbour(g, k, px, py, pz);
+    if (q < 0) continue;
     const V* B = blocks + ((long)k * g.bs + s1) * g.bs * NB + p;
     for (int s2 = 0; s2 < g.r2[k]; ++s2)
       ax += ld(B, (long)s2 * NB) * x[(long)s2 * NB + q];
@@ -112,20 +103,7 @@ extern "C" int saamge_mid_chain(const void* blocks, int blocks_bf16,
   if (n_offs < 1 || n_offs > SAAMGE_MAX_BOFFS || n_roots < 1 ||
       n_roots > SAAMGE_MAX_ROOTS)
     return (int)cudaErrorInvalidValue;
-  MidGeom g;
-  g.BX = geom[0];
-  g.BY = geom[1];
-  g.BZ = geom[2];
-  g.bs = geom[3];
-  g.k = n_offs;
-  for (int k = 0; k < n_offs; ++k) {
-    const int* o = geom + 4 + 5 * k;
-    g.dx[k] = o[0];
-    g.dy[k] = o[1];
-    g.dz[k] = o[2];
-    g.r1[k] = o[3];
-    g.r2[k] = o[4];
-  }
+  MidGeom g = make_mid_geom(geom, n_offs);
   Taus taus = make_taus(inv_taus, n_roots);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =

@@ -1,9 +1,10 @@
 """Build of the hand-written CUDA kernels.
 
 All ``saamge_tpu_torch/csrc/*.cu`` files are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, cached
-under ``build/saamge_tpu_torch/`` of the checkout and keyed by a hash of
-the sources, and loaded with ``ctypes``.  The build happens at the first
+``sm_90a`` (one nvcc process per source, all started together) and
+linked into one shared library with a plain C interface, cached under
+``build/saamge_tpu_torch/`` of the checkout and keyed by a hash of the
+sources, and loaded with ``ctypes``.  The build happens at the first
 kernel launch, never at import.  A failed build or load raises: there
 is no fallback that would hide the card."""
 
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "saamge_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 MAX_ROOTS = 32          # SAAMGE_MAX_ROOTS of csrc/common.cuh
 
 _lock = threading.Lock()
@@ -70,11 +71,50 @@ def _declare(lib) -> None:
     lib.saamge_window_P.argtypes = [I, P, P, P, P, P]
     lib.saamge_mid_chain.argtypes = [P, I, P, I, P, I, I, P, P, P, P, P,
                                      P, P]
+    lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, F, P,
+                                 P]
+    lib.saamge_midmv.argtypes = [P, I, P, I, P, P, P]
     for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
-                 "saamge_window_P", "saamge_mid_chain"):
+                 "saamge_window_P", "saamge_mid_chain", "saamge_mfree",
+                 "saamge_midmv"):
         getattr(lib, name).restype = I
     lib.saamge_error_string.argtypes = [I]
     lib.saamge_error_string.restype = ctypes.c_char_p
+
+
+def _run(cmds) -> None:
+    """Run the nvcc commands in parallel; wait for all, then raise if
+    any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
+def _compile(so: str) -> None:
+    nvcc = _nvcc()
+    work = f"{so}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    try:
+        objs, cmds = [], []
+        for src in (p for p in sources() if p.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            objs.append(obj)
+            cmds.append([nvcc] + NVCC_FLAGS + ["-I", CSRC, "-c", src,
+                                               "-o", obj])
+        _run(cmds)
+        tmp = os.path.join(work, "lib.so")
+        _run([[nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load():
@@ -86,16 +126,7 @@ def load():
         t0 = time.perf_counter()
         so = os.path.join(BUILD_DIR, f"libsaamge_kernels_{_digest()}.so")
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp]
-                   + [p for p in sources() if p.endswith(".cu")])
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, so)
+            _compile(so)
         lib = ctypes.CDLL(so)
         _declare(lib)
         build_seconds = time.perf_counter() - t0

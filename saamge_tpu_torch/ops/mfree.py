@@ -1,0 +1,205 @@
+"""Matrix-free Q1 fine operator: the 27 stencil values of every row are
+recomputed from the element coefficient field instead of being stored.
+
+On a uniform hex mesh the element matrices factor as ``em_e = c_e * K``
+(fem/assemble.py diffusion_factorized), so every DIA value is a sum of
+at most 8 weighted neighbouring coefficients:
+
+    A[u, u + delta] = sum_{(l, l'): corner(l') - corner(l) = delta}
+                          K[l, l'] * c(u - corner(l))
+
+with c stored at each element's lowest corner node.  Essential-BC
+elimination (keep_diag, fem/assemble.py eliminate_essential_bc) comes
+from the node mask m (1 = free, 0 = essential):
+
+    y = m * A_full(m * x) + (1 - m) * d * x,   d = the delta = 0 value.
+
+The c field is zero on the last node plane of each dimension and in the
+halo, so every tap that wraps to the next grid line or leaves the grid
+reads a zero coefficient: no per-tap bounds test is needed.
+
+Layout: the flat haloed vectors of ops/sparse.DIA, with the same
+``halo = max|offset| = sx + sy + 1`` (sx = NYn*NZn, sy = NZn), so the
+passes chain with the stored-DIA ones and with each other.  The TPU
+kernel's (rows, 128) tiling, its lane-shift groups and its z-lane
+(``nzp``) variant are lane artefacts of that layout and are not ported.
+
+``mfree_h`` launches the hand-written kernel (csrc/mfree.cu, replacing
+saamge_tpu/ops/pallas_mfree.py `_build_mfree`) for CUDA tensors and runs
+``mfree_plain_h`` for CPU tensors.  Arithmetic is f32; bf16 c and m are
+widened on load."""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from saamge_tpu_torch._device import check, is_cuda
+from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.ops.stencil import MODES
+
+# MFEM hex corner ordering (fem/mesh.py hex_mesh): bottom face CCW, then
+# the top face; the same bit rule is written out in csrc/mfree.cu.
+CORNERS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+           (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1))
+
+
+def q1_halo(dims) -> int:
+    """max|offset| of the Q1 stencil on a (NXn, NYn, NZn) node grid."""
+    return dims[1] * dims[2] + dims[2] + 1
+
+
+@dataclasses.dataclass
+class MatrixFreeQ1:
+    c_h: torch.Tensor           # haloed (n + 2 halo,) coefficient field
+    m_h: torch.Tensor           # haloed free-dof mask, same dtype as c_h
+    K: Tuple[Tuple[float, ...], ...]    # (8, 8) reference element matrix
+    dims: Tuple[int, int, int]  # nodes (NXn, NYn, NZn)
+
+    @property
+    def n(self) -> int:
+        NXn, NYn, NZn = self.dims
+        return NXn * NYn * NZn
+
+    @property
+    def strides(self) -> Tuple[int, int]:
+        return self.dims[1] * self.dims[2], self.dims[2]
+
+    @property
+    def halo(self) -> int:
+        return q1_halo(self.dims)
+
+    @staticmethod
+    def build(c_elem, ess_dofs, em0, dims, cdtype=torch.bfloat16,
+              A_csr=None) -> "MatrixFreeQ1":
+        """``c_elem``: per-element coefficients in the mesh's
+        lexicographic element order; ``ess_dofs``: essential node ids;
+        ``em0``: the (8, 8) reference element matrix.  With ``A_csr``
+        the assembled operator's diagonal is checked against the (c, K)
+        reconstruction on every row; a mismatch raises ValueError."""
+        NXn, NYn, NZn = (int(v) for v in dims)
+        nx, ny, nz = NXn - 1, NYn - 1, NZn - 1
+        c3 = np.asarray(c_elem, np.float64).reshape(nx, ny, nz)
+        cg = np.zeros((NXn, NYn, NZn))
+        cg[:nx, :ny, :nz] = c3
+        m = np.ones(NXn * NYn * NZn)
+        m[np.asarray(ess_dofs, np.int64)] = 0.0
+        K = np.asarray(em0, np.float64)
+        if A_csr is not None:
+            d = np.zeros((NXn, NYn, NZn))
+            for l, (ax, ay, az) in enumerate(CORNERS):
+                d[ax:ax + nx, ay:ay + ny, az:az + nz] += K[l, l] * c3
+            if not np.allclose(d.ravel(), np.asarray(A_csr.diagonal()),
+                               rtol=1e-8, atol=0.0):
+                raise ValueError(
+                    "(em0, c) factorization does not reproduce the "
+                    "operator diagonal: the matrix-free fine level is "
+                    "invalid for this problem")
+        h = q1_halo(dims)
+
+        def haloed(flat):
+            # rounded to f32 first, as the JAX package's arrays are
+            out = torch.zeros(flat.size + 2 * h, dtype=torch.float32)
+            out[h:h + flat.size] = torch.as_tensor(flat)
+            return out.to(cdtype)
+
+        return MatrixFreeQ1(haloed(cg.ravel()), haloed(m),
+                            tuple(tuple(float(v) for v in row) for row in K),
+                            (NXn, NYn, NZn))
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        """flat (n,) -> haloed (n + 2 halo,) f32."""
+        return torch.nn.functional.pad(x.to(torch.float32),
+                                       (self.halo, self.halo))
+
+    def unpad(self, xh: torch.Tensor) -> torch.Tensor:
+        return xh[self.halo:self.halo + self.n]
+
+
+def _delta_values(op: MatrixFreeQ1, c: torch.Tensor):
+    """{(dx, dy, dz): A values on the n interior rows}: the 27 stencil
+    values rebuilt from the 8 corner-shifted slices of c."""
+    sx, sy = op.strides
+    h, n = op.halo, op.n
+    cl = []
+    for ax, ay, az in CORNERS:
+        s = ax * sx + ay * sy + az
+        cl.append(c[h - s:h - s + n])
+    vals = {}
+    for l, (ax, ay, az) in enumerate(CORNERS):
+        for lp, (bx, by, bz) in enumerate(CORNERS):
+            key = (bx - ax, by - ay, bz - az)
+            term = op.K[l][lp] * cl[l]
+            vals[key] = term if key not in vals else vals[key] + term
+    return vals
+
+
+def mfree_plain_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
+                  inv_tau: float = 0.0) -> torch.Tensor:
+    if mode not in MODES:
+        raise ValueError(mode)
+    sx, sy = op.strides
+    h, n = op.halo, op.n
+    m = op.m_h.to(torch.float32)
+    vals = _delta_values(op, op.c_h.to(torch.float32))
+    xm = xh * m
+    acc = torch.zeros(n, dtype=torch.float32, device=xh.device)
+    for (dx, dy, dz), v in sorted(vals.items()):
+        off = dx * sx + dy * sy + dz
+        acc += v * xm[h + off:h + off + n]
+    mc, xc = m[h:h + n], xh[h:h + n]
+    y = mc * acc + (1.0 - mc) * (vals[(0, 0, 0)] * xc)
+    if mode == "residual":
+        y = bh[h:h + n] - y
+    elif mode == "root":
+        y = xc + dinvh[h:h + n] * (bh[h:h + n] - y) * inv_tau
+    return op.pad(y)
+
+
+@functools.lru_cache(maxsize=8)
+def _k_array(K):
+    """K as the launcher's float[64], built once per matrix (the
+    wrapper's host time is a large share of a pass at n=96)."""
+    return _build.float_array([v for row in K for v in row])
+
+
+def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
+            inv_tau: float = 0.0) -> torch.Tensor:
+    """One matrix-free pass in ``mode`` ('spmv', 'residual' or 'root')
+    on haloed vectors; the output's halo is zero."""
+    if mode not in MODES:
+        raise ValueError(mode)
+    vecs = {"x": xh}
+    if mode in ("residual", "root"):
+        vecs["b"] = bh
+    if mode == "root":
+        vecs["dinv"] = dinvh
+    if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        return mfree_plain_h(mode, op, xh, bh, dinvh, inv_tau)
+    size = op.n + 2 * op.halo
+    check(op.c_h, "c_h", (torch.float32, torch.bfloat16), (size,))
+    check(op.m_h, "m_h", op.c_h.dtype, (size,))
+    for name, v in vecs.items():
+        check(v, name, torch.float32, (size,))
+    lib = _build.load()
+    y = torch.empty_like(xh)
+    K = _k_array(op.K)
+    with torch.cuda.device(xh.device):
+        code = lib.saamge_mfree(
+            MODES[mode], op.c_h.data_ptr(), op.m_h.data_ptr(),
+            int(op.c_h.dtype == torch.bfloat16), ctypes.addressof(K),
+            *op.dims, op.halo, xh.data_ptr(),
+            vecs["b"].data_ptr() if "b" in vecs else None,
+            vecs["dinv"].data_ptr() if "dinv" in vecs else None,
+            float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
+    _build.check_launch(lib, code, "mfree")
+    mfree_h.launches += 1
+    return y
+
+
+mfree_h.launches = 0

@@ -14,8 +14,18 @@ blocks, and an f32 PCG operator.  One V-cycle runs
   fine post-smoothing sweep             (ops/wavefront.py, kernel)
 
 and PCG's operator is the f32 stencil matvec (ops/stencil.py, kernel).
-The host builders are numpy re-implementations of the JAX module's
-(which imports jax and so cannot be used here).
+
+The full-capacity configuration (``mfree`` with ``hbm_frugal``, the
+JAX package's ``run_capacity.py`` flags) keeps no stored fine operator
+and no full mid blocks on the device:
+
+  fine smoothing: chained matrix-free roots + residual  (ops/mfree.py)
+  mid smoothing: chained roots on the packed matvec     (ops/midmv.py)
+  PCG operator: the f32 matrix-free pass                (ops/mfree.py)
+
+with the same tent R/P and coarsest level (its inverse optionally
+bf16).  The host builders are numpy re-implementations of the JAX
+module's (which imports jax and so cannot be used here).
 
 Fine vectors are flat and haloed (ops/sparse.DIA), not the TPU's
 (rows, 128) tiling; the z-lane layout is not ported."""
@@ -29,6 +39,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, mfree_h
+from saamge_tpu_torch.ops.midmv import midmv, pack_blocks
 from saamge_tpu_torch.ops.midsmooth import mid_chain
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import stencil_h
@@ -207,46 +219,73 @@ class StructuredHierarchy(torch.nn.Module):
     moves it; on a CUDA device every kernel of the cycle is a
     hand-written one, on the CPU each runs its plain torch version.
 
-    Buffers: A0_vals (k, n) f32 PCG operator; A0s_vals (k, n) smoother
-    twin; dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
-    blocks; A1_blocks (k1, bs, bs, NB) mid operator; dinv1 (bs*NB,) mid
-    scaling (0 on padding slots); Rst1 (bs2, win, NB2) superbrick tent
-    blocks; flat_id / flat_id2 real-dof ids in the padded layouts; Ainv
-    the coarsest inverse."""
+    The PCG operator A0 (f32) and the smoother twin A0s are each stored
+    diagonals (buffer ``<name>_vals``, (k, n), ops/sparse.DIA) or
+    matrix-free (buffers ``<name>_c`` and ``<name>_m``, the haloed
+    coefficient field and node mask, ops/mfree.MatrixFreeQ1).  The mid
+    operator is the full blocks ``A1_blocks`` (k1, bs, bs, NB), run by
+    the resident chain, or the packed rectangles ``A1_packed``
+    (ops/midmv.py), run as chained matvecs; the other is None.  Other
+    buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
+    blocks; dinv1 (bs*NB,) mid scaling (0 on padding slots); Rst1 (bs2,
+    win, NB2) superbrick tent blocks; flat_id / flat_id2 real-dof ids in
+    the padded layouts; Ainv the coarsest inverse (f32 or bf16)."""
 
-    def __init__(self, *, A0_vals, A0s_vals, offsets, dinv0, taus0, Rst,
-                 A1_blocks, doffs, rects, dinv1, taus1, Rst1, flat_id,
-                 flat_id2, Ainv, geo: BrickGeometry, supers):
+    def __init__(self, *, A0, A0s, dinv0, taus0, Rst, doffs, rects, dinv1,
+                 taus1, Rst1, flat_id, flat_id2, Ainv, geo: BrickGeometry,
+                 supers, A1_blocks=None, A1_packed=None):
         super().__init__()
-        self.offsets = tuple(int(o) for o in offsets)
-        self.n = int(A0_vals.shape[1])
+        if (A1_blocks is None) == (A1_packed is None):
+            raise ValueError("give exactly one of A1_blocks and A1_packed")
+        if A0.halo != A0s.halo:
+            raise ValueError(f"PCG operator halo {A0.halo} != smoother "
+                             f"twin halo {A0s.halo}")
+        self.n = int(np.prod(geo.nodes))
         self.geo = geo
         self.supers = tuple(int(s) for s in supers)
         self.taus0 = tuple(float(t) for t in taus0)
         self.taus1 = tuple(float(t) for t in taus1)
         self.doffs = tuple(tuple(int(c) for c in d) for d in doffs)
         self.rects = tuple((int(a), int(b)) for a, b in rects)
-        self.register_buffer("A0_vals", A0_vals)
-        self.register_buffer("A0s_vals", A0s_vals)
-        halo = DIA(A0_vals, self.offsets, self.n).halo
+        self.offsets = self.K = None
+        for name, op in (("A0", A0), ("A0s", A0s)):
+            if op.n != self.n:
+                raise ValueError(f"{name} has {op.n} rows, the brick "
+                                 f"geometry {self.n} nodes")
+            if isinstance(op, DIA):
+                self.offsets = tuple(int(o) for o in op.offsets)
+                self.register_buffer(f"{name}_vals", op.vals)
+            else:
+                self.K = op.K
+                self.register_buffer(f"{name}_c", op.c_h)
+                self.register_buffer(f"{name}_m", op.m_h)
         self.register_buffer("dinv0h", torch.nn.functional.pad(
-            dinv0.to(torch.float32), (halo, halo)))
+            dinv0.to(torch.float32), (A0.halo, A0.halo)))
         self.register_buffer("Rst", Rst)
         self.register_buffer("A1_blocks", A1_blocks)
+        self.register_buffer("A1_packed", A1_packed)
         self.register_buffer("dinv1", dinv1.to(torch.float32))
         self.register_buffer("Rst1", Rst1)
         self.register_buffer("flat_id", flat_id.to(torch.int64))
         self.register_buffer("flat_id2", flat_id2.to(torch.int64))
-        self.register_buffer("Ainv", Ainv.to(torch.float32))
+        self.register_buffer("Ainv", Ainv)
 
     # -- operators and layouts -------------------------------------------
-    @property
-    def A0(self) -> DIA:
-        return DIA(self.A0_vals, self.offsets, self.n)
+    def _fine_op(self, name: str):
+        vals = getattr(self, f"{name}_vals", None)
+        if vals is not None:
+            return DIA(vals, self.offsets, self.n)
+        return MatrixFreeQ1(getattr(self, f"{name}_c"),
+                            getattr(self, f"{name}_m"), self.K,
+                            self.geo.nodes)
 
     @property
-    def A0s(self) -> DIA:
-        return DIA(self.A0s_vals, self.offsets, self.n)
+    def A0(self):
+        return self._fine_op("A0")
+
+    @property
+    def A0s(self):
+        return self._fine_op("A0s")
 
     @property
     def bs(self) -> int:
@@ -259,7 +298,8 @@ class StructuredHierarchy(torch.nn.Module):
     def matvec0(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x, the PCG operator (f32 values)."""
         A0 = self.A0
-        return A0.unpad(stencil_h("spmv", A0, A0.pad(x)))
+        fn = stencil_h if isinstance(A0, DIA) else mfree_h
+        return A0.unpad(fn("spmv", A0, A0.pad(x)))
 
     def apply_R(self, res: torch.Tensor) -> torch.Tensor:
         return window_R(self.Rst, res, self.geo.bricks,
@@ -294,30 +334,59 @@ class StructuredHierarchy(torch.nn.Module):
     def coarsest_correct(self, r1: torch.Tensor) -> torch.Tensor:
         rc2 = self.apply_R1(r1)
         y2 = torch.zeros_like(rc2)
-        y2[self.flat_id2] = self.Ainv @ rc2[self.flat_id2]
+        # a bf16 inverse is widened for the product, as XLA promotes the
+        # JAX package's mixed-dtype matmul
+        y2[self.flat_id2] = self.Ainv.to(torch.float32) @ rc2[self.flat_id2]
         return self.apply_P1(y2)
+
+    def mid_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A1 x over the packed rectangles (hbm_frugal)."""
+        return midmv(self.A1_packed, self.doffs, self.rects, self.geo.bricks,
+                     self.bs, x)
 
     def mid_correct(self, rc: torch.Tensor) -> torch.Tensor:
         """Pre mid-chain (+ residual), coarsest correction, post
         mid-chain, on the slot-major padded mid layout."""
-        args = (self.A1_blocks, self.doffs, self.rects, self.geo.bricks,
-                self.taus1)
-        x1, r1 = mid_chain(*args, rc, self.dinv1, torch.zeros_like(rc),
-                           emit_res=True)
-        x1 = x1 + self.coarsest_correct(r1)
-        return mid_chain(*args, rc, self.dinv1, x1)
+        if self.A1_packed is None:
+            args = (self.A1_blocks, self.doffs, self.rects, self.geo.bricks,
+                    self.taus1)
+            x1, r1 = mid_chain(*args, rc, self.dinv1, torch.zeros_like(rc),
+                               emit_res=True)
+            x1 = x1 + self.coarsest_correct(r1)
+            return mid_chain(*args, rc, self.dinv1, x1)
+        # chained packed matvecs, in the op order of the JAX mid_correct
+        x1 = torch.zeros_like(rc)
+        for it in self.taus1:
+            x1 = x1 + self.dinv1 * (rc - self.mid_matvec(x1)) * it
+        x1 = x1 + self.coarsest_correct(rc - self.mid_matvec(x1))
+        for it in self.taus1:
+            x1 = x1 + self.dinv1 * (rc - self.mid_matvec(x1)) * it
+        return x1
+
+    def _smooth_h(self, A, bh, xh, emit_res: bool = False):
+        """All fine roots (+ the trailing residual): one sweep kernel for
+        stored diagonals, chained passes for the matrix-free operator
+        (the sweep applies only to stored diagonals, as in JAX)."""
+        if isinstance(A, DIA):
+            return wavefront_smooth(A, self.taus0, bh, self.dinv0h, xh,
+                                    emit_residual=emit_res)
+        for it in self.taus0:
+            xh = mfree_h("root", A, xh, bh=bh, dinvh=self.dinv0h,
+                         inv_tau=it)
+        if emit_res:
+            return xh, mfree_h("residual", A, xh, bh=bh)
+        return xh
 
     def vcycle(self, b: torch.Tensor) -> torch.Tensor:
         """One V-cycle from a zero initial guess (tg_cycle_atb,
         reference tg.cpp:91, on the structured formats)."""
         A0s = self.A0s
         bh = A0s.pad(b)
-        xh, resh = wavefront_smooth(A0s, self.taus0, bh, self.dinv0h,
-                                    torch.zeros_like(bh),
-                                    emit_residual=True)
+        xh, resh = self._smooth_h(A0s, bh, torch.zeros_like(bh),
+                                  emit_res=True)
         xc = self.mid_correct(self.apply_R(A0s.unpad(resh)))
         xh = xh + A0s.pad(self.apply_P(xc))
-        xh = wavefront_smooth(A0s, self.taus0, bh, self.dinv0h, xh)
+        xh = self._smooth_h(A0s, bh, xh)
         return A0s.unpad(xh)
 
 
@@ -331,14 +400,25 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
                        smoother_dtype=torch.bfloat16,
                        rp_dtype=torch.bfloat16,
                        mid_dtype=torch.bfloat16,
-                       device="cpu") -> StructuredHierarchy:
+                       device="cpu", mfree=None, hbm_frugal: bool = False,
+                       ainv_dtype=torch.float32) -> StructuredHierarchy:
     """Build the structured hierarchy from a 3-level host setup product
     on a brick partitioning with a superbrick coarsest level (the
     flagship configuration; JAX counterpart compile_structured with
     super_bricks, window_contract, wavefront and the resident mid
     chain).  ``smoother_dtype``, ``rp_dtype`` and ``mid_dtype`` are the
     storage dtypes of the fine smoother twin, the tent blocks (Rst and
-    Rst1) and the mid blocks; the PCG operator is always f32."""
+    Rst1) and the mid blocks; the PCG operator is always f32.
+
+    The capacity options of the JAX compile_structured:
+    ``mfree=(em0, c_elem, ess_dofs)`` (when the fine operator factors
+    per element as c_e * em0, fem/assemble.py diffusion_factorized)
+    makes the smoother twin matrix-free, with its coefficient field in
+    ``smoother_dtype``, checked against the operator's diagonal on every
+    row.  ``hbm_frugal`` stores the mid operator as packed rectangles
+    only and, with ``mfree``, makes the PCG operator an f32 matrix-free
+    one: no (k, n) diagonals and no full mid blocks are kept.
+    ``ainv_dtype`` is the storage dtype of the coarsest inverse."""
     if len(ml.levels) != 2:
         raise ValueError("the structured port needs a 3-level setup "
                          f"(2 two-grid levels), got {len(ml.levels)}")
@@ -349,7 +429,16 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
     pd0 = tg0.poly_data
     if pd0.roots2 is not None and len(pd0.roots2):
         raise ValueError("only single-chain root families are ported")
-    A0 = DIA.from_csr(lv0.A, torch.float32, max_diags=64)
+    if mfree is None:
+        A0 = DIA.from_csr(lv0.A, torch.float32, max_diags=64)
+        A0s = DIA(A0.vals.to(smoother_dtype), A0.offsets, A0.n)
+    else:
+        em0, c_elem, ess_dofs = mfree
+        A0s = MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
+                                 smoother_dtype, A_csr=lv0.A)
+        A0 = (MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
+                                 torch.float32) if hbm_frugal
+              else DIA.from_csr(lv0.A, torch.float32, max_diags=64))
     Rst_bm, cd_brick, slot, bs = build_structured_interp(
         lv0.rels, tg0.tent_interp, tg0.interp_data.mis_numcoarsedof, geo)
     NB = geo.num_bricks
@@ -368,17 +457,20 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
     Ainv = np.linalg.inv(np.asarray(tg1.Ac.todense(), dtype=np.float64))
 
     t = torch.as_tensor
+    if hbm_frugal:
+        mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
+    else:
+        mid = {"A1_blocks": t(blocks).to(torch.float32).to(mid_dtype)}
     h = StructuredHierarchy(
-        A0_vals=A0.vals, A0s_vals=A0.vals.to(smoother_dtype),
-        offsets=A0.offsets,
-        dinv0=t(np.asarray(pd0.dinv, np.float64)),
+        A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
         taus0=_f32_inv_taus(pd0.roots),
         Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0))).to(rp_dtype),
-        A1_blocks=t(blocks).to(torch.float32).to(mid_dtype),
         doffs=doffs, rects=rects, dinv1=t(dinv1),
         taus1=_f32_inv_taus(tg1.poly_data.roots),
         Rst1=t(Rst1).to(rp_dtype), flat_id=t(flat_id),
-        flat_id2=t(flat_id2), Ainv=t(Ainv), geo=geo, supers=super_bricks)
+        flat_id2=t(flat_id2),
+        Ainv=t(Ainv).to(torch.float32).to(ainv_dtype), geo=geo,
+        supers=super_bricks, **mid)
     return h.to(device)
 
 
