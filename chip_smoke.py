@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py            # the flagship n=96 problem
+    python3 chip_smoke.py            # flagship n=96, general path n=64
 
 Phases (one line each; any failure raises and exits non-zero):
   1. device   -- requires a CUDA card; prints its name and power limit
   2. build    -- nvcc-builds the hand-written kernels (csrc/*.cu, sm_90a),
                  one nvcc per source, in parallel
   3. setup    -- ONE flagship host setup (912,673 dofs at n=96) with the
-                 matrix-free factors; from it the flagship hierarchy and
-                 the full-capacity one (mfree + hbm_frugal + bf16
-                 coarsest inverse), each on the CPU
+                 matrix-free factors; from it the flagship hierarchy, the
+                 full-capacity one (mfree + hbm_frugal + bf16 coarsest
+                 inverse) and the box-contraction one (f32 tent blocks,
+                 use_pallas_contract), each on the CPU
   4. flagship -- on the card: its kernels against their plain torch
-                 versions (CUDA-event timings), then the slice: V-cycle vs
-                 the CPU copy, PCG at 1e-6 (launch counts) and 1e-8,
-                 V-cycle time, peak device memory and buffer bytes
+                 versions (CUDA-event timings, bound, library call), then
+                 the slice: V-cycle vs the CPU copy, PCG at 1e-6 (launch
+                 counts) and 1e-8, V-cycle time, peak device memory and
+                 buffer bytes
   5. capacity -- the same for the capacity hierarchy and its kernels
                  (matrix-free fine operator, packed mid matvec); its PCG
                  must launch no kernel of the stored-operator path
-The flagship hierarchy leaves the card before the capacity one arrives,
-so each path's peak device memory is its own.  The last two lines are
-the kernels' JSON record and the result line {"ok": true, "device":
-{...}}.  ``--n`` (and ``--brick``) shrink the problem for development
+  6. contract -- the same for the box-contraction hierarchy and its two
+                 kernels; its PCG launches no window kernel and must take
+                 within one iteration of the flagship's
+  7. general  -- the general (unstructured) path: the hexkway host setup
+                 (generic k-way agglomeration, 274,625 dofs at n=64, 3
+                 levels), compile_hierarchy, the fused smoother kernel,
+                 then the slice; its PCG launches the smoother and the
+                 stencil and no structured-only kernel
+Each hierarchy leaves the card before the next arrives, so each path's
+peak device memory is its own.  The last two lines are the kernels' JSON
+record and the result line {"ok": true, "device": {...}}.  ``--n``,
+``--brick`` and ``--general-n`` shrink the problems for development
 only."""
 
 from __future__ import annotations
@@ -37,7 +47,11 @@ import time
 
 FLAGSHIP_DIMS = [18917, 287]          # coarse dims of the n=96 flagship
 PCG_MAX = {1e-6: 19, 1e-8: 25}        # JAX records 18 / 24 at n=96
+GENERAL_DIMS = [16652, 367]           # coarse dims of hexkway n=64
+GENERAL_PCG_MAX = {1e-6: 18, 1e-8: 22}  # host f64 PCG 17 / 21, plus 1
 TOLS = (1e-6, 1e-8)
+HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOP_S = 67e12          # H100 SXM f32 outside the tensor cores
 T0 = time.perf_counter()
 
 
@@ -75,43 +89,69 @@ def rel_err(got, ref):
     return abs_err, abs_err / max(scale, 1e-30)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def buffer_bytes(h) -> int:
-    return sum(b.numel() * b.element_size() for b in h.buffers())
+    return nbytes(*h.buffers())
+
+
+def bound(work):
+    """Least time of the card for (bytes moved, f32 operations): each
+    input read once and each output written once over the memory rate,
+    or the operations over the f32 rate, whichever is larger."""
+    nb, flops = work
+    tb, tf = nb / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def sparse_csr(rows, cols, vals, shape, torch):
+    """A CSR matrix from COO triplets (duplicates summed)."""
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                   shape).coalesce().to_sparse_csr()
 
 
 def run_kernels(cases, torch):
-    """Each kernel against its plain version on the same card tensors;
-    returns the kernels' records."""
+    """Each kernel against its plain version on the same card tensors,
+    with its bound and, where one exists, the time of one PyTorch call
+    that computes the same function; returns the kernels' records."""
     records = []
-    for name, tol, source, replaces, kern, plain in cases:
+    for name, tol, source, replaces, kern, plain, work, library in cases:
         got = kern()
         ref = plain()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, ref)
         ms = median_ms(kern, torch, draws=5, calls=20)
         plain_ms = median_ms(plain, torch, draws=5, calls=4)
+        lib_ms = (median_ms(library, torch, draws=5, calls=20)
+                  if library is not None else None)
+        bound_ms, bound_by = bound(work)
         log("kernel", name=name, max_abs_err=f"{abs_err:.3e}",
             max_rel_err=f"{rel:.3e}", tol=tol, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}")
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, library_ms=lib_ms, bytes=work[0],
+            flops=work[1])
         if not rel <= tol:
             raise RuntimeError(f"{name}: rel err {rel:.3e} > {tol}")
         records.append({"name": name, "route": "cuda",
                         "source": f"saamge_tpu_torch/csrc/{source}",
                         "replaces": f"saamge_tpu/ops/{replaces}",
-                        "max_abs_err": abs_err,
-                        "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": abs_err, "max_rel_err": rel,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms})
     return records
 
 
-def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np):
+def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
+              pcg):
     """V-cycle on the card vs the CPU copy, PCG at both tolerances (the
     launch counts of every wrapper during the 1e-6 solve), the true
     residual, V-cycle time and the peak device memory of the solve."""
-    from saamge_tpu_torch import struct_pcg_solve
     dev = next(h.buffers()).device
     b = torch.as_tensor(b_np, dtype=torch.float32)
     bd = b.to(dev)
-    _, rel = rel_err(h.vcycle(bd).cpu(), h_cpu.vcycle(b))
+    _, rel = rel_err(vcycle(h, bd).cpu(), vcycle(h_cpu, b))
     log(path, vcycle_vs_cpu_rel_err=f"{rel:.3e}", tol=1e-4,
         at_s=f"{time.perf_counter() - T0:.1f}")
     if not rel <= 1e-4:
@@ -123,22 +163,22 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    _, it6, _ = struct_pcg_solve(h, bd, rel_tol=1e-6)
+    _, it6, _ = pcg(h, bd, 1e-6)
     torch.cuda.synchronize()
     pcg6_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     log(path, launches=launches)
     t0 = time.perf_counter()
-    x8, it8, _ = struct_pcg_solve(h, bd, rel_tol=1e-8)
+    x8, it8, _ = pcg(h, bd, 1e-8)
     torch.cuda.synchronize()
     pcg8_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
-    it6_cpu = struct_pcg_solve(h_cpu, b, rel_tol=1e-6)[1]
+    it6_cpu = pcg(h_cpu, b, 1e-6)[1]
     xs = x8.double().cpu().numpy()
     true_res = float(np.linalg.norm(b_np - A_host @ xs)
                      / np.linalg.norm(b_np))
     finite = bool(torch.isfinite(x8).all()) and x8.shape == (h.n,)
-    vms = median_ms(lambda: h.vcycle(bd), torch, draws=20)
+    vms = median_ms(lambda: vcycle(h, bd), torch, draws=20)
     out = {"pcg_iters_1e6": it6, "pcg_iters_1e8": it8,
            "pcg_iters_1e6_cpu": it6_cpu, "pcg_1e6_s": f"{pcg6_s:.3f}",
            "pcg_1e8_s": f"{pcg8_s:.3f}",
@@ -161,11 +201,27 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np):
     return out
 
 
+def check_launches(path, launches, must, never):
+    low = {k: launches[k] for k in must if launches[k] < 1}
+    high = {k: launches[k] for k in never if launches[k] > 0}
+    if low or high:
+        raise RuntimeError(f"{path} PCG launches: not launched {low}, "
+                           f"launched but must not be {high}")
+
+
+def leave_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96,
-                    help="mesh size (development only; default 96)")
+                    help="flagship mesh size (development only; default 96)")
     ap.add_argument("--brick", type=int, default=8)
+    ap.add_argument("--general-n", type=int, default=64,
+                    help="general-path mesh size (development only; "
+                         "default 64)")
     args = ap.parse_args()
 
     import numpy as np
@@ -175,19 +231,37 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from saamge_tpu_torch import compile_structured, flagship_problem
+    from saamge_tpu_torch import (compile_hierarchy, compile_structured,
+                                  flagship_problem, general_problem,
+                                  pcg_solve, struct_pcg_solve,
+                                  struct_vcycle_apply, vcycle_apply)
     from saamge_tpu_torch.ops import _build
+    from saamge_tpu_torch.ops.contract import (contract_P, contract_P_plain,
+                                               contract_R, contract_R_plain,
+                                               extract_boxes)
     from saamge_tpu_torch.ops.mfree import mfree_h, mfree_plain_h
     from saamge_tpu_torch.ops.midmv import midmv, midmv_plain
     from saamge_tpu_torch.ops.midsmooth import mid_chain, mid_chain_plain
+    from saamge_tpu_torch.ops.smoother import smoother_h, smoother_plain
     from saamge_tpu_torch.ops.stencil import stencil_h, stencil_plain_h
     from saamge_tpu_torch.ops.wavefront import (wavefront_plain,
                                                 wavefront_smooth)
-    from saamge_tpu_torch.ops.window import (window_P, window_P_plain,
-                                             window_R, window_R_plain)
+    from saamge_tpu_torch.ops.window import (box_index, window_P,
+                                             window_P_plain, window_R,
+                                             window_R_plain)
     wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
                 "window_R": window_R, "window_P": window_P,
-                "mid_chain": mid_chain, "mfree": mfree_h, "midmv": midmv}
+                "mid_chain": mid_chain, "mfree": mfree_h, "midmv": midmv,
+                "smoother": smoother_h, "contract_R": contract_R,
+                "contract_P": contract_P}
+    structured_only = ("wavefront", "window_R", "window_P", "mid_chain",
+                       "mfree", "midmv", "contract_R", "contract_P")
+
+    def s_pcg(h, b, tol):
+        return struct_pcg_solve(h, b, rel_tol=tol)
+
+    def g_pcg(h, b, tol):
+        return pcg_solve(h, b, rel_tol=tol, max_iter=300)
 
     # 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -197,7 +271,7 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda)
+        cuda=torch.version.cuda, smi=smi)
 
     # 2. build ----------------------------------------------------------
     _build.load()
@@ -214,12 +288,19 @@ def main() -> int:
     dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
     A_host = ml.levels[0].A
     t0 = time.perf_counter()
-    h_cpu = compile_structured(ml, geo, supers)
+    h_cpu = compile_structured(ml, geo, supers, device="cpu")
     hc_cpu = compile_structured(ml, geo, supers, mfree=fac, hbm_frugal=True,
-                                ainv_dtype=torch.bfloat16)
+                                ainv_dtype=torch.bfloat16, device="cpu")
+    hk_cpu = compile_structured(ml, geo, supers, rp_dtype=torch.float32,
+                                use_pallas_contract=True, device="cpu")
     compile_s = time.perf_counter() - t0
+    # the mid operator in the slot-major padded layout: the library
+    # yardstick of the packed matvec is one sparse product with it
+    Ac = ml.levels[0].tg_data.Ac.tocoo()
+    fid = h_cpu.flat_id.numpy()
+    mid_coo = (fid[Ac.row], fid[Ac.col], Ac.data)
     ndof = h_cpu.n
-    del ml
+    del ml, Ac
     log("setup", n=args.n, ndof=ndof, coarse_dims=dims, bs=h_cpu.bs,
         supers=supers, setup_s=f"{setup_s:.1f}",
         compile_s=f"{compile_s:.1f}",
@@ -232,35 +313,77 @@ def main() -> int:
         return torch.as_tensor(rng.standard_normal(m),
                                dtype=torch.float32).to(dev)
 
+    def card_csr(rows, cols, vals, shape):
+        return sparse_csr(torch.as_tensor(rows).to(dev),
+                          torch.as_tensor(cols).to(dev),
+                          torch.as_tensor(vals, dtype=torch.float32).to(dev),
+                          shape, torch)
+
+    A_coo = A_host.tocoo()
+    A0_csr = card_csr(A_coo.row, A_coo.col, A_coo.data, (ndof, ndof))
+    A1_csr = card_csr(*mid_coo, (h_cpu.n_flat,) * 2)
+    del A_coo, mid_coo
+    geo_args = (geo.bricks, geo.brick_elems)
+    box, NB = geo.box, geo.num_bricks
+    k0 = 27
+    hvec = ndof + 2 * h_cpu.A0.halo          # haloed vector length
+
+    def tent_csr(Rst):
+        """The tent restriction as a (bs*NB, n) CSR matrix and its
+        transpose, with the values of Rst widened to f32."""
+        bs = Rst.shape[0]
+        idx = box_index(geo.bricks, geo.brick_elems, dev)
+        rows = (torch.arange(bs, device=dev)[:, None, None] * NB
+                + torch.arange(NB, device=dev)[None, None, :]) \
+            .expand(bs, box, NB)
+        cols = idx[None].expand(bs, box, NB)
+        vals = Rst.to(torch.float32)
+        keep = vals != 0
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        return (sparse_csr(rows, cols, vals, (bs * NB, ndof), torch),
+                sparse_csr(cols, rows, vals, (ndof, bs * NB), torch))
+
     # 4. flagship -------------------------------------------------------
-    torch.cuda.empty_cache()
+    leave_card(torch)
     h = copy.deepcopy(h_cpu).to(dev)
     A0, A0s = h.A0, h.A0s
     xh, bh = A0.pad(vec(ndof)), A0.pad(vec(ndof))
     r_f, xc = vec(ndof), vec(h.n_flat)
     b1, x1 = vec(h.n_flat), vec(h.n_flat)
-    geo_args = (geo.bricks, geo.brick_elems)
     mid_args = (h.A1_blocks, h.doffs, h.rects, geo.bricks, h.taus1)
     root_kw = {"bh": bh, "dinvh": h.dinv0h, "inv_tau": h.taus0[0]}
+    Rc, Pc = tent_csr(h.Rst)
+    log("library", tent_csr_nnz=Rc.values().numel(),
+        rst_values=h.Rst.numel(), A1_csr_nnz=A1_csr.values().numel(),
+        A1_packed_values=hc_cpu.A1_packed.numel())
+    rect = sum(r1 * r2 * NB for r1, r2 in h.rects)
+    r0, r1n = len(h.taus0), len(h.taus1)
+    tent_work = (nbytes(h.Rst) + ndof * 4 + h.n_flat * 4, 2 * h.Rst.numel())
     records = run_kernels([
         ("stencil", 1e-5, "stencil.cu", "pallas_stencil.py:61",
          lambda: stencil_h("spmv", A0, xh),
-         lambda: stencil_plain_h("spmv", A0, xh)),
-        ("wavefront", 1e-4, "wavefront.cu",
-         "pallas_wavefront.py:123",
+         lambda: stencil_plain_h("spmv", A0, xh),
+         (nbytes(A0.vals) + 2 * hvec * 4, 2 * k0 * ndof),
+         lambda: A0_csr @ r_f[:, None]),
+        ("wavefront", 1e-4, "wavefront.cu", "pallas_wavefront.py:123",
          lambda: wavefront_smooth(A0s, h.taus0, bh, h.dinv0h, xh, True),
-         lambda: wavefront_plain(A0s, h.taus0, bh, h.dinv0h, xh, True)),
+         lambda: wavefront_plain(A0s, h.taus0, bh, h.dinv0h, xh, True),
+         (nbytes(A0s.vals) + 5 * hvec * 4,
+          r0 * (2 * k0 + 4) * ndof + (2 * k0 + 1) * ndof), None),
         ("window_R", 1e-5, "window.cu", "pallas_window.py:144",
          lambda: window_R(h.Rst, r_f, *geo_args),
-         lambda: window_R_plain(h.Rst, r_f, *geo_args)),
+         lambda: window_R_plain(h.Rst, r_f, *geo_args), tent_work,
+         lambda: Rc @ r_f[:, None]),
         ("window_P", 1e-5, "window.cu", "pallas_window.py:193",
          lambda: window_P(h.Rst, xc, *geo_args),
-         lambda: window_P_plain(h.Rst, xc, *geo_args)),
-        ("mid_chain", 1e-4, "midsmooth.cu",
-         "pallas_midsmooth.py:136",
+         lambda: window_P_plain(h.Rst, xc, *geo_args), tent_work,
+         lambda: Pc @ xc[:, None]),
+        ("mid_chain", 1e-4, "midsmooth.cu", "pallas_midsmooth.py:136",
          lambda: mid_chain(*mid_args[:4], h.taus1, b1, h.dinv1, x1, True),
          lambda: mid_chain_plain(h.A1_blocks, h.doffs, geo.bricks,
-                                 h.taus1, b1, h.dinv1, x1, True)),
+                                 h.taus1, b1, h.dinv1, x1, True),
+         (rect * h.A1_blocks.element_size() + 5 * h.n_flat * 4,
+          (r1n + 1) * 2 * rect + r1n * 4 * h.n_flat), None),
     ], torch)
     # the stencil kernel's residual and root modes on the bf16 twin (the
     # sweep kernel does their work on the main path); the root pass is
@@ -274,21 +397,21 @@ def main() -> int:
             tol=1e-5, ms=f"{ms:.4f}")
         if not rel <= 1e-5:
             raise RuntimeError(f"stencil {mode}: rel err {rel:.3e}")
-    mid_full = h.A1_blocks.numel() * h.A1_blocks.element_size()
-    del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw
-    flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers, torch, np)
-    idle = [k for k in ("stencil", "wavefront", "window_R", "window_P",
-                        "mid_chain") if flag["launches"][k] < 1]
-    if idle:
-        raise RuntimeError(f"kernels not launched by the flagship PCG: "
-                           f"{idle}")
+    mid_full = nbytes(h.A1_blocks)
+    del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc, A0_csr
+    flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers, torch, np,
+                     struct_vcycle_apply, s_pcg)
+    check_launches("flagship", flag["launches"],
+                   ("stencil", "wavefront", "window_R", "window_P",
+                    "mid_chain"),
+                   ("mfree", "midmv", "smoother", "contract_R",
+                    "contract_P"))
     it6, it8 = flag["it"]
     if args.n == 96 and (it6 > PCG_MAX[1e-6] or it8 > PCG_MAX[1e-8]):
         raise RuntimeError(f"PCG iterations {it6}/{it8} above "
                            f"{PCG_MAX[1e-6]}/{PCG_MAX[1e-8]}")
     del h, h_cpu
-    gc.collect()
-    torch.cuda.empty_cache()
+    leave_card(torch)
 
     # 5. capacity -------------------------------------------------------
     hc = copy.deepcopy(hc_cpu).to(dev)
@@ -297,12 +420,18 @@ def main() -> int:
     x1 = vec(hc.n_flat)
     root_kw = {"bh": bh, "dinvh": hc.dinv0h, "inv_tau": hc.taus0[0]}
     mv_args = (hc.A1_packed, hc.doffs, hc.rects, geo.bricks, hc.bs, x1)
+    # per node: 64 FMAs rebuild the 27 values, 27 (mul + FMA) taps, root
+    mfree_flops = (2 * 64 + 3 * 27 + 8) * ndof
     records += run_kernels([
         ("mfree", 1e-5, "mfree.cu", "pallas_mfree.py:100",
          lambda: mfree_h("root", C0s, xh, **root_kw),
-         lambda: mfree_plain_h("root", C0s, xh, **root_kw)),
+         lambda: mfree_plain_h("root", C0s, xh, **root_kw),
+         (nbytes(C0s.c_h, C0s.m_h) + 4 * hvec * 4, mfree_flops), None),
         ("midmv", 1e-5, "midmv.cu", "pallas_midmv.py:142",
-         lambda: midmv(*mv_args), lambda: midmv_plain(*mv_args)),
+         lambda: midmv(*mv_args), lambda: midmv_plain(*mv_args),
+         (nbytes(hc.A1_packed) + 2 * hc.n_flat * 4,
+          2 * hc.A1_packed.numel()),
+         lambda: A1_csr @ x1[:, None]),
     ], torch)
     records[-2]["case"] = "root, bf16 c/m"
     records[-1]["case"] = f"{hc.A1_packed.dtype} packed blocks"
@@ -315,17 +444,14 @@ def main() -> int:
             max_rel_err=f"{rel:.3e}", tol=1e-5, ms=f"{ms:.4f}")
         if not rel <= 1e-5:
             raise RuntimeError(f"mfree {mode}: rel err {rel:.3e}")
-    mid_packed = hc.A1_packed.numel() * hc.A1_packed.element_size()
-    del C0, C0s, xh, bh, x1, root_kw, mv_args
+    mid_packed = nbytes(hc.A1_packed)
+    del C0, C0s, xh, bh, x1, root_kw, mv_args, A1_csr
     cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers, torch,
-                    np)
-    must = {k: cap["launches"][k] for k in ("mfree", "midmv", "window_R",
-                                            "window_P")}
-    never = {k: cap["launches"][k] for k in ("stencil", "wavefront",
-                                             "mid_chain")}
-    if min(must.values()) < 1 or max(never.values()) > 0:
-        raise RuntimeError(f"capacity PCG launches: need > 0 {must}, "
-                           f"need 0 {never}")
+                    np, struct_vcycle_apply, s_pcg)
+    check_launches("capacity", cap["launches"],
+                   ("mfree", "midmv", "window_R", "window_P"),
+                   ("stencil", "wavefront", "mid_chain", "smoother",
+                    "contract_R", "contract_P"))
     for tol, a, c in zip(TOLS, flag["it"], cap["it"]):
         if abs(a - c) > 2:
             raise RuntimeError(f"capacity PCG {c} vs flagship {a} "
@@ -340,10 +466,94 @@ def main() -> int:
     if cap["buffer_bytes"] > flag["buffer_bytes"] - diags:
         raise RuntimeError("the capacity hierarchy is not smaller than the "
                            "flagship by the stored f32 + bf16 diagonals")
+    del hc, hc_cpu
+    leave_card(torch)
 
+    # 6. contract -------------------------------------------------------
+    hk = copy.deepcopy(hk_cpu).to(dev)
+    boxes = extract_boxes(vec(ndof), *geo_args)
+    xck = vec(hk.n_flat).view(hk.bs, NB)
+    kwork = (nbytes(hk.Rst) + (box + hk.bs) * NB * 4, 2 * hk.Rst.numel())
+    records += run_kernels([
+        ("contract_R", 1e-5, "contract.cu", "pallas_contract.py:47",
+         lambda: contract_R(hk.Rst, boxes),
+         lambda: contract_R_plain(hk.Rst, boxes), kwork,
+         lambda: torch.einsum("cbn,bn->cn", hk.Rst, boxes)),
+        ("contract_P", 1e-5, "contract.cu", "pallas_contract.py:47",
+         lambda: contract_P(hk.Rst, xck),
+         lambda: contract_P_plain(hk.Rst, xck), kwork,
+         lambda: torch.einsum("cbn,cn->bn", hk.Rst, xck)),
+    ], torch)
+    records[-2]["case"] = records[-1]["case"] = "f32 Rst"
+    del boxes, xck
+    con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers, torch,
+                    np, struct_vcycle_apply, s_pcg)
+    check_launches("contract", con["launches"],
+                   ("contract_R", "contract_P", "stencil", "wavefront",
+                    "mid_chain"),
+                   ("window_R", "window_P", "mfree", "midmv", "smoother"))
+    for tol, a, c in zip(TOLS, flag["it"], con["it"]):
+        if abs(a - c) > 1:
+            raise RuntimeError(f"contract PCG {c} vs flagship {a} "
+                               f"iterations at {tol}")
+    del hk, hk_cpu, A_host
+    leave_card(torch)
+
+    # 7. general --------------------------------------------------------
+    t0 = time.perf_counter()
+    ml, A_gen, b_gen = general_problem(n=args.general_n)
+    gsetup_s = time.perf_counter() - t0
+    gdims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+    t0 = time.perf_counter()
+    g_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
+    gcompile_s = time.perf_counter() - t0
+    del ml
+    def fmt(M):
+        nb = getattr(getattr(M, "base", M), "nbuckets", None)
+        return type(M).__name__ + (f"[{nb} buckets]" if nb else "")
+
+    formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
+    log("general", n=args.general_n, ndof=g_cpu.n, coarse_dims=gdims,
+        setup_s=f"{gsetup_s:.1f}", compile_s=f"{gcompile_s:.1f}",
+        formats=formats, roots=[len(lv.roots) for lv in g_cpu.levels])
+    if args.general_n == 64 and gdims != GENERAL_DIMS:
+        raise RuntimeError(f"general coarse dims {gdims} != {GENERAL_DIMS}")
+    g = copy.deepcopy(g_cpu).to(dev)
+    lv0 = g.levels[0]
+    G0 = lv0.A
+    if not lv0.fused or len(G0.offsets) != 27 or len(lv0.inv_taus) != 10:
+        raise RuntimeError(f"general fine level: fused={lv0.fused}, "
+                           f"{len(G0.offsets)} offsets, roots "
+                           f"{lv0.inv_taus}")
+    ghvec = G0.n + 2 * G0.halo
+    gx, gb = G0.pad(vec(G0.n)), G0.pad(vec(G0.n))
+    records += run_kernels([
+        ("smoother", 1e-4, "wavefront.cu", "pallas_smoother.py:36",
+         lambda: smoother_h(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
+         lambda: smoother_plain(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
+         (nbytes(G0.vals) + 4 * ghvec * 4,
+          len(lv0.inv_taus) * (2 * k0 + 4) * G0.n), None),
+    ], torch)
+    records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
+    del gx, gb, G0, lv0
+    gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers, torch, np,
+                    vcycle_apply, g_pcg)
+    check_launches("general", gen["launches"], ("smoother", "stencil"),
+                   structured_only)
+    it6, it8 = gen["it"]
+    if args.general_n == 64 and (it6 > GENERAL_PCG_MAX[1e-6]
+                                 or it8 > GENERAL_PCG_MAX[1e-8]):
+        raise RuntimeError(f"general PCG iterations {it6}/{it8} above "
+                           f"{GENERAL_PCG_MAX[1e-6]}/"
+                           f"{GENERAL_PCG_MAX[1e-8]}")
+    del g, g_cpu
+    leave_card(torch)
+
+    paths = {"mfree": cap, "midmv": cap, "contract_R": con,
+             "contract_P": con, "smoother": gen}
     for rec in records:
-        path = cap if rec["name"] in ("mfree", "midmv") else flag
-        rec["launches"] = path["launches"][rec["name"]]
+        rec["launches"] = paths.get(rec["name"], flag)["launches"][
+            rec["name"]]
     log("done", seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -1,4 +1,10 @@
-"""Carry a JAX StructuredHierarchy's arrays over to the port.
+"""Carry a JAX hierarchy's arrays over to the port.
+
+``from_jax_compiled`` takes a saamge_tpu ``CompiledHierarchy`` (the
+general path) and reads its arrays through ``np.asarray``; formats are
+told apart by class name, so this module needs no JAX.  It covers DIA
+(stored or the blocked ``PallasDIA`` layout), ELL, banded and block-row
+levels, block-row and ELL transfer operators, and the Cholesky factor.
 
 ``from_jax_arrays`` takes the fields of a saamge_tpu
 ``StructuredHierarchy`` (built with super_bricks) as numpy arrays, so
@@ -25,6 +31,10 @@ hierarchy (mfree, hbm_frugal) has in place of the stored operators
                                  layout of the tent blocks (in place of
                                  "Rst", which is a placeholder there)
 
+and a hierarchy built with ``use_pallas_contract`` has d["Rst_pad"], the
+(bs, boxp, NBp) tile-padded tent blocks; the padding is stripped and the
+port's hierarchy runs the contraction kernels.
+
 Storage dtypes are kept (a bf16 array stays bf16)."""
 
 from __future__ import annotations
@@ -32,8 +42,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from saamge_tpu_torch.ops.blockrow import BlockRow, TransposedBlockRow
 from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, q1_halo
-from saamge_tpu_torch.ops.sparse import DIA
+from saamge_tpu_torch.ops.sparse import DIA, ELL, Banded
+from saamge_tpu_torch.solve.compiled import (CompiledHierarchy,
+                                             CompiledLevel)
 from saamge_tpu_torch.solve.structured import (BrickGeometry,
                                                StructuredHierarchy)
 
@@ -90,16 +103,57 @@ def from_jax_arrays(d: dict, meta: dict,
             _tensor(np.ascontiguousarray(
                 np.asarray(a)[:r2, :r1, :NB].transpose(1, 0, 2))).reshape(-1)
             for a, (r1, r2) in zip(d["A1kC"], meta["rects"])])}
+    if "Rst_pad" in d:
+        Rst = _tensor(np.ascontiguousarray(
+            np.asarray(d["Rst_pad"])[:, :geo.box, :geo.num_bricks]))
+    elif "Wc.rstw" in d:
+        Rst = _rst_from_window(d["Wc.rstw"], geo.bricks, geo.brick_elems)
+    else:
+        Rst = _tensor(d["Rst"])
     h = StructuredHierarchy(
         A0=fine_op("A0.vals2", "A0m"), A0s=fine_op("A0s.vals2", "A0s"),
         dinv0=unhalo(d["dinv0h"]),
-        taus0=np.asarray(d["taus0"], np.float32).reshape(-1),
-        Rst=(_rst_from_window(d["Wc.rstw"], geo.bricks, geo.brick_elems)
-             if "Wc.rstw" in d else _tensor(d["Rst"])),
+        taus0=np.asarray(d["taus0"], np.float32).reshape(-1), Rst=Rst,
         doffs=meta["doffs"], rects=meta["rects"],
         dinv1=_tensor(d["dinv1"]),
         taus1=np.asarray(d["taus1"], np.float32).reshape(-1),
         Rst1=_tensor(d["Rst1"]), flat_id=_tensor(d["flat_id"]),
         flat_id2=_tensor(d["flat_id2"]), Ainv=_tensor(d["Ainv"]), geo=geo,
-        supers=meta["supers"], **mid)
+        supers=meta["supers"], contract="Rst_pad" in d, **mid)
     return h.to(device)
+
+
+def _format(M):
+    """A JAX device matrix (by class name) -> the port's format."""
+    kind = type(M).__name__
+    n, m = (int(s) for s in M.shape)
+    if kind == "DeviceDIA":
+        return DIA(_tensor(M.vals), tuple(M.offsets), n)
+    if kind == "PallasDIA":
+        k = len(M.offsets)
+        return DIA(_tensor(np.asarray(M.vals2).reshape(k, -1)[:, :n]),
+                   tuple(M.offsets), n)
+    if kind == "DeviceELL":
+        return ELL(_tensor(M.cols).to(torch.int64), _tensor(M.vals), (n, m))
+    if kind == "DeviceBanded":
+        return Banded(_tensor(M.blocks), M.lo, (n, m))
+    if kind == "DeviceBlockRow":
+        return BlockRow([(_tensor(b.blocks), _tensor(b.colidx).to(torch.int64),
+                          _tensor(b.row0).to(torch.int64))
+                         for b in M.buckets],
+                        _tensor(M.gather_rows).to(torch.int64), (n, m))
+    raise TypeError(f"no port format for a JAX {kind}")
+
+
+def from_jax_compiled(hj, device="cpu") -> CompiledHierarchy:
+    """The port's CompiledHierarchy from a saamge_tpu CompiledHierarchy
+    (same formats, values, roots and Cholesky factor)."""
+    levels = []
+    for lv in hj.levels:
+        R = _format(lv.R)
+        P = (TransposedBlockRow(R) if type(lv.P).__name__
+             == "TransposedBlockRow" else _format(lv.P))
+        levels.append(CompiledLevel(
+            _format(lv.A), P, R, _tensor(lv.dinv), np.asarray(lv.roots),
+            np.asarray(lv.roots2), float(np.asarray(lv.weightfirst))))
+    return CompiledHierarchy(levels, _tensor(hj.chol)).to(device)

@@ -74,9 +74,10 @@ def _declare(lib) -> None:
     lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, F, P,
                                  P]
     lib.saamge_midmv.argtypes = [P, I, P, I, P, P, P]
+    lib.saamge_contract.argtypes = [I, I, P, I, I, I, P, P, P]
     for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
                  "saamge_window_P", "saamge_mid_chain", "saamge_mfree",
-                 "saamge_midmv"):
+                 "saamge_midmv", "saamge_contract"):
         getattr(lib, name).restype = I
     lib.saamge_error_string.argtypes = [I]
     lib.saamge_error_string.restype = ctypes.c_char_p

@@ -24,8 +24,11 @@ and no full mid blocks on the device:
   PCG operator: the f32 matrix-free pass                (ops/mfree.py)
 
 with the same tent R/P and coarsest level (its inverse optionally
-bf16).  The host builders are numpy re-implementations of the JAX
-module's (which imports jax and so cannot be used here).
+bf16).  With ``use_pallas_contract`` (f32 tent blocks) the tent R/P are
+box extraction + ``contract_R`` and ``contract_P`` + the box fold
+(ops/contract.py) in place of the window kernels.  The host builders
+are numpy re-implementations of the JAX module's (which imports jax and
+so cannot be used here).
 
 Fine vectors are flat and haloed (ops/sparse.DIA), not the TPU's
 (rows, 128) tiling; the z-lane layout is not ported."""
@@ -39,13 +42,17 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saamge_tpu_torch.ops.contract import (contract_P, contract_R,
+                                           extract_boxes, fold_boxes)
 from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, mfree_h
 from saamge_tpu_torch.ops.midmv import midmv, pack_blocks
 from saamge_tpu_torch.ops.midsmooth import mid_chain
+from saamge_tpu_torch.ops.smoother import inv_taus_f32
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.ops.wavefront import wavefront_smooth
 from saamge_tpu_torch.ops.window import window_P, window_R
+from saamge_tpu_torch.solve.device_pcg import pcg
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +236,16 @@ class StructuredHierarchy(torch.nn.Module):
     buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
     blocks; dinv1 (bs*NB,) mid scaling (0 on padding slots); Rst1 (bs2,
     win, NB2) superbrick tent blocks; flat_id / flat_id2 real-dof ids in
-    the padded layouts; Ainv the coarsest inverse (f32 or bf16)."""
+    the padded layouts; Ainv the coarsest inverse (f32 or bf16).  With
+    ``contract`` the tent R/P run as box contractions (ops/contract.py)
+    instead of the window kernels."""
 
     def __init__(self, *, A0, A0s, dinv0, taus0, Rst, doffs, rects, dinv1,
                  taus1, Rst1, flat_id, flat_id2, Ainv, geo: BrickGeometry,
-                 supers, A1_blocks=None, A1_packed=None):
+                 supers, A1_blocks=None, A1_packed=None,
+                 contract: bool = False):
         super().__init__()
+        self.contract = bool(contract)
         if (A1_blocks is None) == (A1_packed is None):
             raise ValueError("give exactly one of A1_blocks and A1_packed")
         if A0.halo != A0s.halo:
@@ -302,11 +313,17 @@ class StructuredHierarchy(torch.nn.Module):
         return A0.unpad(fn("spmv", A0, A0.pad(x)))
 
     def apply_R(self, res: torch.Tensor) -> torch.Tensor:
-        return window_R(self.Rst, res, self.geo.bricks,
-                        self.geo.brick_elems)
+        geo = (self.geo.bricks, self.geo.brick_elems)
+        if self.contract:
+            return contract_R(self.Rst, extract_boxes(res, *geo)).reshape(-1)
+        return window_R(self.Rst, res, *geo)
 
     def apply_P(self, xc: torch.Tensor) -> torch.Tensor:
-        return window_P(self.Rst, xc, self.geo.bricks, self.geo.brick_elems)
+        geo = (self.geo.bricks, self.geo.brick_elems)
+        if self.contract:
+            C = contract_P(self.Rst, xc.view(self.bs, -1))
+            return fold_boxes(C, *geo)
+        return window_P(self.Rst, xc, *geo)
 
     # -- coarsest level (plain torch, as the JAX package leaves it to XLA)
     def _super_dims(self):
@@ -390,18 +407,14 @@ class StructuredHierarchy(torch.nn.Module):
         return A0s.unpad(xh)
 
 
-def _f32_inv_taus(roots) -> tuple:
-    """1/tau of each root, rounded to f32 as the JAX package stores it."""
-    return tuple(float(np.float32(1.0 / float(t)))
-                 for t in np.asarray(roots))
-
-
 def compile_structured(ml, geo: BrickGeometry, super_bricks,
                        smoother_dtype=torch.bfloat16,
                        rp_dtype=torch.bfloat16,
                        mid_dtype=torch.bfloat16,
-                       device="cpu", mfree=None, hbm_frugal: bool = False,
-                       ainv_dtype=torch.float32) -> StructuredHierarchy:
+                       device="cuda", mfree=None, hbm_frugal: bool = False,
+                       ainv_dtype=torch.float32,
+                       use_pallas_contract: bool = False
+                       ) -> StructuredHierarchy:
     """Build the structured hierarchy from a 3-level host setup product
     on a brick partitioning with a superbrick coarsest level (the
     flagship configuration; JAX counterpart compile_structured with
@@ -418,7 +431,13 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
     row.  ``hbm_frugal`` stores the mid operator as packed rectangles
     only and, with ``mfree``, makes the PCG operator an f32 matrix-free
     one: no (k, n) diagonals and no full mid blocks are kept.
-    ``ainv_dtype`` is the storage dtype of the coarsest inverse."""
+    ``ainv_dtype`` is the storage dtype of the coarsest inverse.
+
+    ``use_pallas_contract`` runs the tent R/P as box extraction and the
+    contraction kernels (ops/contract.py) instead of the window kernels;
+    the JAX configuration pairs it with f32 tent blocks
+    (``rp_dtype=torch.float32``).  The hierarchy is built on ``device``
+    (the card unless the caller asks for "cpu")."""
     if len(ml.levels) != 2:
         raise ValueError("the structured port needs a 3-level setup "
                          f"(2 two-grid levels), got {len(ml.levels)}")
@@ -463,14 +482,14 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
         mid = {"A1_blocks": t(blocks).to(torch.float32).to(mid_dtype)}
     h = StructuredHierarchy(
         A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
-        taus0=_f32_inv_taus(pd0.roots),
+        taus0=inv_taus_f32(pd0.roots),
         Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0))).to(rp_dtype),
         doffs=doffs, rects=rects, dinv1=t(dinv1),
-        taus1=_f32_inv_taus(tg1.poly_data.roots),
+        taus1=inv_taus_f32(tg1.poly_data.roots),
         Rst1=t(Rst1).to(rp_dtype), flat_id=t(flat_id),
         flat_id2=t(flat_id2),
         Ainv=t(Ainv).to(torch.float32).to(ainv_dtype), geo=geo,
-        supers=super_bricks, **mid)
+        supers=super_bricks, contract=use_pallas_contract, **mid)
     return h.to(device)
 
 
@@ -485,30 +504,7 @@ def struct_vcycle_apply(h: StructuredHierarchy, b: torch.Tensor):
 def struct_pcg_solve(h: StructuredHierarchy, b: torch.Tensor,
                      rel_tol: float = 1e-6, abs_tol: float = 0.0,
                      max_iter: int = 200):
-    """PCG with MFEM CGSolver semantics, preconditioned by one V-cycle;
-    returns (x, iterations, final preconditioned residual norm^2).
-
-    The loop is Python: the stopping test ``nom > lim`` is read on the
-    host once per iteration (one device sync per iteration).  The JAX
-    package runs the same loop on device (lax.while_loop); capturing it
-    in a CUDA graph is later work."""
-    b = b.to(torch.float32)
-    z = h.vcycle(b)
-    nom = torch.dot(z, b)
-    lim = torch.clamp(nom * rel_tol * rel_tol, min=abs_tol * abs_tol)
-    x = torch.zeros_like(b)
-    r = b
-    d = z
-    Ad = h.matvec0(d)
-    it = 0
-    while it < max_iter and bool(nom > lim):
-        alpha = nom / torch.dot(d, Ad)
-        x = x + alpha * d
-        r = r - alpha * Ad
-        z = h.vcycle(r)
-        betanom = torch.dot(r, z)
-        d = z + (betanom / nom) * d
-        Ad = h.matvec0(d)
-        nom = betanom
-        it += 1
-    return x, it, nom
+    """PCG (solve/device_pcg.py) preconditioned by one V-cycle, with the
+    f32 PCG operator; returns (x, iterations, final (B r, r))."""
+    return pcg(h.matvec0, h.vcycle, b.to(torch.float32), rel_tol=rel_tol,
+               abs_tol=abs_tol, max_iter=max_iter)

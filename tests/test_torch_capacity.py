@@ -40,7 +40,7 @@ def setup():
 def port_capacity(setup):
     ml, _, geo, supers, fac = setup
     return compile_structured(ml, geo, supers, mfree=fac, hbm_frugal=True,
-                              ainv_dtype=BF16)
+                              ainv_dtype=BF16, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_capacity_holds_no_stored_operator(setup, port_capacity):
         assert tuple(buf.shape) != (27, h.n), name
         assert tuple(buf.shape) != (k1, h.bs, h.bs, NB), name
     assert h.A1_packed.numel() == sum(r1 * r2 * NB for r1, r2 in h.rects)
-    flag = compile_structured(setup[0], setup[2], setup[3])
+    flag = compile_structured(setup[0], setup[2], setup[3], device="cpu")
     nbytes = {m: sum(b.numel() * b.element_size()
                      for b in hh.buffers()) for m, hh in
               (("flagship", flag), ("capacity", h))}
@@ -122,9 +122,9 @@ def test_capacity_options_alone_match_flagship(setup, variant):
     ml, b, geo, supers, fac = setup
     f32 = dict(smoother_dtype=torch.float32, rp_dtype=torch.float32,
                mid_dtype=torch.float32)
-    ref = compile_structured(ml, geo, supers, **f32)
+    ref = compile_structured(ml, geo, supers, device="cpu", **f32)
     kw = {"mfree": fac} if variant == "mfree_only" else {"hbm_frugal": True}
-    h = compile_structured(ml, geo, supers, **kw, **f32)
+    h = compile_structured(ml, geo, supers, device="cpu", **kw, **f32)
     if variant == "mfree_only":
         assert isinstance(h.A0s, MatrixFreeQ1) and h.A0_vals is not None
     else:
@@ -183,7 +183,7 @@ from saamge_tpu_torch import (compile_structured, flagship_problem,
 ml, b, geo, supers, fac = flagship_problem(n=8, brick=2, supers=(2, 2, 2),
                                            mfree=True)
 h = compile_structured(ml, geo, supers, mfree=fac, hbm_frugal=True,
-                       ainv_dtype=torch.bfloat16)
+                       ainv_dtype=torch.bfloat16, device="cpu")
 assert h.A1_blocks is None
 bt = torch.as_tensor(b, dtype=torch.float32)
 x, it, nom = struct_pcg_solve(h, bt, rel_tol=1e-8)

@@ -26,7 +26,8 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
 @pytest.fixture(scope="module")
 def mid():
     ml, _, geo, supers = flagship_problem(n=16, brick=4, supers=(2, 2, 2))
-    h = compile_structured(ml, geo, supers, mid_dtype=torch.float32)
+    h = compile_structured(ml, geo, supers, mid_dtype=torch.float32,
+                           device="cpu")
     tg0 = ml.levels[0].tg_data
     cd_brick, slot, bs, _ = JS.coarse_brick_numbering(
         ml.levels[0].rels, tg0.interp_data.mis_numcoarsedof)

@@ -65,7 +65,7 @@ def test_slice_matches_jax_flagship(setup, jax_flagship):
     within one iteration."""
     ml, b, geo, supers, _ = setup
     y_ref, it_ref = _jax_solves(jax_flagship, b)
-    y, its = _port_solves(compile_structured(ml, geo, supers), b)
+    y, its = _port_solves(compile_structured(ml, geo, supers, device="cpu"), b)
     assert np.abs(y - y_ref).max() <= 1e-2 * np.abs(y_ref).max()
     for it, itr in zip(its, it_ref):
         assert abs(it - itr) <= 1
@@ -79,7 +79,8 @@ def test_slice_matches_jax_all_f32(setup):
     y_ref, it_ref = _jax_solves(hj, b)
     f32 = torch.float32
     y, its = _port_solves(compile_structured(
-        ml, geo, supers, smoother_dtype=f32, rp_dtype=f32, mid_dtype=f32), b)
+        ml, geo, supers, smoother_dtype=f32, rp_dtype=f32, mid_dtype=f32,
+        device="cpu"), b)
     assert np.abs(y - y_ref).max() <= 5e-4 * np.abs(y_ref).max()
     assert its == it_ref
 
@@ -99,7 +100,7 @@ def test_from_jax_arrays_equals_compile(setup, jax_flagship):
             "bricks": geo.bricks, "brick_elems": geo.brick_elems,
             "supers": hj.supers}
     hc = from_jax_arrays({k: np.asarray(v) for k, v in d.items()}, meta)
-    h = compile_structured(ml, geo, supers)
+    h = compile_structured(ml, geo, supers, device="cpu")
     for name, buf in h.named_buffers():
         other = dict(hc.named_buffers())[name]
         assert other.dtype == buf.dtype, name
@@ -111,7 +112,7 @@ def test_from_jax_arrays_equals_compile(setup, jax_flagship):
 
 def test_pcg_runtime_tolerance(setup):
     ml, b, geo, supers, _ = setup
-    h = compile_structured(ml, geo, supers)
+    h = compile_structured(ml, geo, supers, device="cpu")
     bt = torch.as_tensor(b, dtype=torch.float32)
     _, it_loose, _ = struct_pcg_solve(h, bt, rel_tol=1e-2)
     _, it_tight, nom = struct_pcg_solve(h, bt, rel_tol=1e-8)
@@ -124,29 +125,38 @@ import importlib.abc, sys
 
 class _BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 
+BLOCKED = ("jax", "jaxlib", "saamge_tpu")
 sys.meta_path.insert(0, _BlockJax())
 import numpy as np, torch
 torch.set_num_threads(1)
-from saamge_tpu_torch import (compile_structured, flagship_problem,
+from saamge_tpu_torch import (compile_hierarchy, compile_structured,
+                              flagship_problem, general_problem, pcg_solve,
                               struct_pcg_solve)
 ml, b, geo, supers = flagship_problem(n=8, brick=2, supers=(2, 2, 2))
-h = compile_structured(ml, geo, supers)
+h = compile_structured(ml, geo, supers, device="cpu")
 bt = torch.as_tensor(b, dtype=torch.float32)
 x, it, nom = struct_pcg_solve(h, bt, rel_tol=1e-8)
 res = np.linalg.norm(b - ml.levels[0].A @ x.double().numpy())
 assert 0 < it < 20 and res <= 1e-5 * np.linalg.norm(b), (it, res)
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
-print("NOJAX_OK", it)
+ml, A, b = general_problem(n=8, levels=2, elems_per_agg=64)
+h = compile_hierarchy(ml, torch.float32, device="cpu")
+x, itg, nom = pcg_solve(h, torch.as_tensor(b, dtype=torch.float32),
+                        rel_tol=1e-8)
+res = np.linalg.norm(b - A @ x.double().numpy())
+assert 0 < itg < 30 and res <= 1e-5 * np.linalg.norm(b), (itg, res)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("NOJAX_OK", it, itg)
 """
 
 
 def test_port_runs_without_jax():
-    """The port (package, host setup, n=8 flagship slice, PCG) imports no
-    JAX module: the machine with the card has none."""
+    """The port (package, host setup, n=8 flagship slice and hexkway
+    general path, PCG) imports no module of JAX or of the JAX package
+    saamge_tpu: the machine with the card has no JAX."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], env=env,
                           capture_output=True, text=True, timeout=300,

@@ -28,7 +28,7 @@ def setup():
     h_win = JS.compile_structured(ml, jgeo, rp_dtype=jnp.bfloat16,
                                   super_bricks=supers, window_contract=True)
     assert h_win.Wc is not None and h_xla.Wc is None
-    h = compile_structured(ml, geo, supers)
+    h = compile_structured(ml, geo, supers, device="cpu")
     rng = np.random.default_rng(5)
     r = rng.standard_normal(h.n).astype(np.float32)
     xc = rng.standard_normal(h.n_flat).astype(np.float32)
@@ -69,7 +69,8 @@ def test_window_matches_tent_csr(setup):
     """With f32 tent blocks, R and P are the host tent P^T and P on the
     real (non-padding) coarse slots; padding slots restrict to zero."""
     ml, h, _, _, r, xc = setup
-    h32 = compile_structured(ml, h.geo, h.supers, rp_dtype=torch.float32)
+    h32 = compile_structured(ml, h.geo, h.supers, rp_dtype=torch.float32,
+                             device="cpu")
     P = ml.levels[0].tg_data.tent_interp.tocsr()
     fid = h32.flat_id.numpy()
     rc = _port(h32, "R", r)
