@@ -9,8 +9,10 @@ hierarchies of chip_smoke.py; general: hexkway n=64) one warm-up PCG
 solve at 1e-6, then one PCG solve at 1e-6 under ``torch.profiler``.
 Prints per path the wall time of the traced solve, the device busy time
 (the union of the kernel intervals), the span from the first kernel's
-start to the last one's end, the idle share 1 - busy / span, and the
-device time per kernel name (calls, total, mean), largest first; writes
+start to the last one's end, the idle share 1 - busy / span, the kernel
+launches per PCG iteration (one V-cycle and one operator matvec, plus
+the PCG's vector updates), and the device time per kernel name (calls,
+total, mean), largest first; writes
 the same as JSON to ``chiprun_out/profile_<path>.json``.  Exits non-zero
 without a card."""
 
@@ -65,13 +67,16 @@ def profile_path(name, h, solve, b, torch, out_dir):
     kernels = sorted(({"name": k, "calls": c, "total_us": t,
                        "mean_us": t / c} for k, (c, t) in by_name.items()),
                      key=lambda r: -r["total_us"])
+    launches = sum(c for c, _ in by_name.values())
     rec = {"path": name, "pcg_iters": it, "wall_ms": wall * 1e3,
            "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
            "idle_share": 1.0 - busy / span if span else None,
+           "launches": launches, "launches_per_iter": launches / max(it, 1),
            "kernels": kernels}
     print(f"[{name}] pcg_iters={it} wall_ms={wall * 1e3:.3f} "
           f"device_busy_ms={busy / 1e3:.3f} span_ms={span / 1e3:.3f} "
-          f"idle_share={rec['idle_share']:.4f}", flush=True)
+          f"idle_share={rec['idle_share']:.4f} launches={launches} "
+          f"launches_per_iter={rec['launches_per_iter']:.1f}", flush=True)
     for k in kernels[:15]:
         print(f"  {k['total_us']:10.1f} us  {k['calls']:5d} calls  "
               f"{k['mean_us']:8.2f} us/call  {k['name'][:90]}")

@@ -6,20 +6,33 @@
 Phases (one line each; any failure raises and exits non-zero):
   1. device   -- requires a CUDA card; prints its name and power limit
   2. build    -- nvcc-builds the hand-written kernels (csrc/*.cu, sm_90a),
-                 one nvcc per source, in parallel
+                 one nvcc per source, in parallel; prints ptxas's
+                 registers, shared bytes and spills of the packed mid
+                 matvec and window R kernels
+  2b. ragged  -- those two kernels against their plain versions on brick
+                 grids with no side a multiple of a tile ((5,3,7), odd:
+                 the scalar-load path; (6,5,4), even: the 2-wide one),
+                 bs = 13, ragged rectangles (r1 = 0, r2 = bs, (bs, bs)),
+                 brick_elems (4,4,4) and (8,8,8), f32 and bf16, every
+                 matvec mode; two launches must agree bit for bit
   3. setup    -- ONE flagship host setup (912,673 dofs at n=96) with the
                  matrix-free factors; from it the flagship hierarchy, the
                  full-capacity one (mfree + hbm_frugal + bf16 coarsest
                  inverse) and the box-contraction one (f32 tent blocks,
                  use_pallas_contract), each on the CPU
   4. flagship -- on the card: its kernels against their plain torch
-                 versions (CUDA-event timings, bound, library call), then
+                 versions (CUDA-event timings `ms`; `device_ms`, the
+                 kernels' own device time per call from one profiler
+                 window; `host_us`, the host time per wrapper call; the
+                 bound; the library call's times), then
                  the slice: V-cycle vs the CPU copy, PCG at 1e-6 (launch
                  counts) and 1e-8, V-cycle time, peak device memory and
                  buffer bytes
   5. capacity -- the same for the capacity hierarchy and its kernels
-                 (matrix-free fine operator, packed mid matvec); its PCG
-                 must launch no kernel of the stored-operator path
+                 (matrix-free fine operator, packed mid matvec and its
+                 residual and root modes); its PCG must launch no kernel
+                 of the stored-operator path, and the packed pass in its
+                 root and residual modes
   6. contract -- the same for the box-contraction hierarchy and its two
                  kernels; its PCG launches no window kernel and must take
                  within one iteration of the flagship's
@@ -81,6 +94,41 @@ def median_ms(fn, torch, draws, calls=1):
     return times[len(times) // 2]
 
 
+def device_ms(fn, torch, device_profile, calls=20, windows=3):
+    """Mean device time per call of the CUDA kernels that ``fn``
+    launches, from one torch.profiler window over ``calls`` calls.  A
+    window in which the profiler delivered no kernel record (seen now
+    and then on the card's machine) is taken again, up to ``windows``
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        _, _, by_name = device_profile(prof, torch)
+        if by_name:
+            return sum(t for _, t in by_name.values()) / calls / 1e3
+    raise RuntimeError(f"the profiler recorded no device kernel in "
+                       f"{windows} windows")
+
+
+def host_us(fn, torch, calls=20):
+    """Host time per call over ``calls`` enqueues, before the
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def rel_err(got, ref):
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
@@ -112,9 +160,9 @@ def sparse_csr(rows, cols, vals, shape, torch):
                                    shape).coalesce().to_sparse_csr()
 
 
-def run_kernels(cases, torch):
+def run_kernels(cases, torch, device_profile):
     """Each kernel against its plain version on the same card tensors,
-    with its bound and, where one exists, the time of one PyTorch call
+    with its bound and, where one exists, the times of one PyTorch call
     that computes the same function; returns the kernels' records."""
     records = []
     for name, tol, source, replaces, kern, plain, work, library in cases:
@@ -123,24 +171,96 @@ def run_kernels(cases, torch):
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, ref)
         ms = median_ms(kern, torch, draws=5, calls=20)
+        dev_ms = device_ms(kern, torch, device_profile)
+        h_us = host_us(kern, torch)
         plain_ms = median_ms(plain, torch, draws=5, calls=4)
-        lib_ms = (median_ms(library, torch, draws=5, calls=20)
-                  if library is not None else None)
+        lib_ms = lib_dev_ms = None
+        if library is not None:
+            lib_ms = median_ms(library, torch, draws=5, calls=20)
+            lib_dev_ms = device_ms(library, torch, device_profile)
         bound_ms, bound_by = bound(work)
         log("kernel", name=name, max_abs_err=f"{abs_err:.3e}",
             max_rel_err=f"{rel:.3e}", tol=tol, ms=f"{ms:.4f}",
+            device_ms=f"{dev_ms:.4f}", host_us=f"{h_us:.2f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-            bound_by=bound_by, library_ms=lib_ms, bytes=work[0],
-            flops=work[1])
+            bound_by=bound_by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, bytes=work[0], flops=work[1])
         if not rel <= tol:
             raise RuntimeError(f"{name}: rel err {rel:.3e} > {tol}")
         records.append({"name": name, "route": "cuda",
                         "source": f"saamge_tpu_torch/csrc/{source}",
                         "replaces": f"saamge_tpu/ops/{replaces}",
                         "max_abs_err": abs_err, "max_rel_err": rel,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
+                        "ms": ms, "device_ms": dev_ms, "host_us": h_us,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "library_device_ms": lib_dev_ms})
     return records
+
+
+def check_modes(name, kern, plain, modes, torch, tol=1e-5):
+    """Other modes of a kernel against its plain version (rel. error and
+    CUDA-event time)."""
+    for mode, kw in modes:
+        _, rel = rel_err(kern(mode, **kw), plain(mode, **kw))
+        ms = median_ms(lambda: kern(mode, **kw), torch, draws=5, calls=20)
+        log("kernel", name=f"{name}_{mode}", max_rel_err=f"{rel:.3e}",
+            tol=tol, ms=f"{ms:.4f}")
+        if not rel <= tol:
+            raise RuntimeError(f"{name} {mode}: rel err {rel:.3e}")
+
+
+def ragged_checks(dev, torch, np, midmv, midmv_plain, window_R,
+                  window_R_plain):
+    """The packed mid matvec (every mode) and window R against their
+    plain versions on ragged shapes from a numpy seed, f32 and bf16;
+    each result must also repeat bit for bit."""
+    rng = np.random.default_rng(11)
+    bs = 13
+    doffs = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                  for dz in (-1, 0, 1))
+    rects = ((0, 5), (bs, bs), (3, bs)) + tuple(
+        (int(a), int(b)) for a, b in rng.integers(0, bs + 1, (24, 2)))
+
+    def vec(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(dev)
+
+    worst, n = 0.0, 0
+    for bricks in ((5, 3, 7), (6, 5, 4)):
+        NB = bricks[0] * bricks[1] * bricks[2]
+        x, b, dinv = vec(bs * NB), vec(bs * NB), vec(bs * NB)
+        total = sum(r1 * r2 * NB for r1, r2 in rects)
+        cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            packed = vec(total).to(dtype)
+            for mode in ("spmv", "residual", "root"):
+                args = (packed, doffs, rects, bricks, bs, x, mode, b, dinv,
+                        0.7)
+                cases.append((f"midmv {bricks} {dtype} {mode}",
+                              lambda a=args: midmv(*a),
+                              lambda a=args: midmv_plain(*a)))
+            for be in ((4, 4, 4), (8, 8, 8)):
+                box = (be[0] + 1) * (be[1] + 1) * (be[2] + 1)
+                nodes = [B * e + 1 for B, e in zip(bricks, be)]
+                Rst = vec(bs, box, NB).to(dtype)
+                r = vec(nodes[0] * nodes[1] * nodes[2])
+                cases.append((f"window_R {bricks} {be} {dtype}",
+                              lambda a=(Rst, r, bricks, be): window_R(*a),
+                              lambda a=(Rst, r, bricks, be):
+                              window_R_plain(*a)))
+        n += len(cases)
+        for what, kern, plain in cases:
+            got = kern()
+            again = kern()
+            _, rel = rel_err(got, plain())
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise RuntimeError(f"ragged {what}: rel err {rel:.3e}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"ragged {what}: two launches differ")
+    log("ragged", cases=n, max_rel_err=f"{worst:.3e}",
+        tol=1e-5, bit_reproducible=True)
 
 
 def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
@@ -162,12 +282,16 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     resident = torch.cuda.memory_allocated(dev)
     for w in wrappers.values():
         w.launches = 0
+        for mode in getattr(w, "mode_launches", ()):
+            w.mode_launches[mode] = 0
     t0 = time.perf_counter()
     _, it6, _ = pcg(h, bd, 1e-6)
     torch.cuda.synchronize()
     pcg6_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    log(path, launches=launches)
+    modes = {name: dict(w.mode_launches) for name, w in wrappers.items()
+             if hasattr(w, "mode_launches")}
+    log(path, launches=launches, mode_launches=modes)
     t0 = time.perf_counter()
     x8, it8, _ = pcg(h, bd, 1e-8)
     torch.cuda.synchronize()
@@ -197,7 +321,7 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
                            "iterations")
     if not true_res <= 1e-3:
         raise RuntimeError(f"{path}: true relative residual {true_res:.3e}")
-    out.update(launches=launches, it=(it6, it8))
+    out.update(launches=launches, modes=modes, it=(it6, it8))
     return out
 
 
@@ -231,6 +355,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chip_profile import device_profile
     from saamge_tpu_torch import (compile_hierarchy, compile_structured,
                                   flagship_problem, general_problem,
                                   pcg_solve, struct_pcg_solve,
@@ -278,6 +403,13 @@ def main() -> int:
     log("build", seconds=f"{_build.build_seconds:.2f}",
         sources=",".join(os.path.relpath(p) for p in _build.sources()),
         flags=" ".join(_build.NVCC_FLAGS))
+    # (entry, registers, static shared bytes, spill stores, spill loads)
+    ptxas = {k: _build.ptxas_resources(src, k) for src, k in
+             (("midmv.cu", "midmv_kernel"), ("window.cu", "window_R_kernel"))}
+    log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
+        else "not reported (library loaded from an earlier build)")
+    ragged_checks(torch.device("cuda", 0), torch, np, midmv, midmv_plain,
+                  window_R, window_R_plain)
 
     # 3. setup ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -384,19 +516,14 @@ def main() -> int:
                                  h.taus1, b1, h.dinv1, x1, True),
          (rect * h.A1_blocks.element_size() + 5 * h.n_flat * 4,
           (r1n + 1) * 2 * rect + r1n * 4 * h.n_flat), None),
-    ], torch)
+    ], torch, device_profile)
     # the stencil kernel's residual and root modes on the bf16 twin (the
     # sweep kernel does their work on the main path); the root pass is
     # timed beside the matrix-free root of phase 5
-    for mode, kw in (("residual", {"bh": bh}), ("root", root_kw)):
-        _, rel = rel_err(stencil_h(mode, A0s, xh, **kw),
-                         stencil_plain_h(mode, A0s, xh, **kw))
-        ms = median_ms(lambda: stencil_h(mode, A0s, xh, **kw), torch,
-                       draws=5, calls=20)
-        log("kernel", name=f"stencil_{mode}_bf16", max_rel_err=f"{rel:.3e}",
-            tol=1e-5, ms=f"{ms:.4f}")
-        if not rel <= 1e-5:
-            raise RuntimeError(f"stencil {mode}: rel err {rel:.3e}")
+    check_modes("stencil_bf16",
+                lambda mode, **kw: stencil_h(mode, A0s, xh, **kw),
+                lambda mode, **kw: stencil_plain_h(mode, A0s, xh, **kw),
+                (("residual", {"bh": bh}), ("root", root_kw)), torch)
     mid_full = nbytes(h.A1_blocks)
     del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc, A0_csr
     flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers, torch, np,
@@ -432,26 +559,29 @@ def main() -> int:
          (nbytes(hc.A1_packed) + 2 * hc.n_flat * 4,
           2 * hc.A1_packed.numel()),
          lambda: A1_csr @ x1[:, None]),
-    ], torch)
+    ], torch, device_profile)
     records[-2]["case"] = "root, bf16 c/m"
-    records[-1]["case"] = f"{hc.A1_packed.dtype} packed blocks"
-    for mode, op, kw in (("spmv", C0, {}), ("residual", C0s, {"bh": bh})):
-        _, rel = rel_err(mfree_h(mode, op, xh, **kw),
-                         mfree_plain_h(mode, op, xh, **kw))
-        ms = median_ms(lambda: mfree_h(mode, op, xh, **kw), torch,
-                       draws=5, calls=20)
-        log("kernel", name=f"mfree_{mode}_{str(op.c_h.dtype)[6:]}",
-            max_rel_err=f"{rel:.3e}", tol=1e-5, ms=f"{ms:.4f}")
-        if not rel <= 1e-5:
-            raise RuntimeError(f"mfree {mode}: rel err {rel:.3e}")
+    records[-1]["case"] = f"spmv, {hc.A1_packed.dtype} packed blocks"
+    b1 = vec(hc.n_flat)
+    mode_kw = {"b": b1, "dinv": hc.dinv1, "inv_tau": hc.taus1[0]}
+    check_modes("midmv", lambda mode, **kw: midmv(*mv_args, mode, **kw),
+                lambda mode, **kw: midmv_plain(*mv_args, mode, **kw),
+                (("residual", {"b": b1}), ("root", mode_kw)), torch)
+    # spmv on the f32 PCG operator, residual on the bf16 smoother twin
+    check_modes("mfree", lambda mode, op, **kw: mfree_h(mode, op, xh, **kw),
+                lambda mode, op, **kw: mfree_plain_h(mode, op, xh, **kw),
+                (("spmv", {"op": C0}), ("residual", {"op": C0s, "bh": bh})),
+                torch)
     mid_packed = nbytes(hc.A1_packed)
-    del C0, C0s, xh, bh, x1, root_kw, mv_args, A1_csr
+    del C0, C0s, xh, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
     cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers, torch,
                     np, struct_vcycle_apply, s_pcg)
     check_launches("capacity", cap["launches"],
                    ("mfree", "midmv", "window_R", "window_P"),
                    ("stencil", "wavefront", "mid_chain", "smoother",
                     "contract_R", "contract_P"))
+    check_launches("capacity midmv", cap["modes"]["midmv"],
+                   ("root", "residual"), ())
     for tol, a, c in zip(TOLS, flag["it"], cap["it"]):
         if abs(a - c) > 2:
             raise RuntimeError(f"capacity PCG {c} vs flagship {a} "
@@ -483,7 +613,7 @@ def main() -> int:
          lambda: contract_P(hk.Rst, xck),
          lambda: contract_P_plain(hk.Rst, xck), kwork,
          lambda: torch.einsum("cbn,cn->bn", hk.Rst, xck)),
-    ], torch)
+    ], torch, device_profile)
     records[-2]["case"] = records[-1]["case"] = "f32 Rst"
     del boxes, xck
     con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers, torch,
@@ -533,7 +663,7 @@ def main() -> int:
          lambda: smoother_plain(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
          (nbytes(G0.vals) + 4 * ghvec * 4,
           len(lv0.inv_taus) * (2 * k0 + 4) * G0.n), None),
-    ], torch)
+    ], torch, device_profile)
     records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
     del gx, gb, G0, lv0
     gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers, torch, np,

@@ -1,6 +1,6 @@
-// Shared pieces of the port's Hopper kernels: value loads that widen
-// bf16 to f32, the small kernel-argument structs, and the cooperative
-// launch used by the chained (multi-level) kernels.
+// Shared pieces of the port's Hopper kernels: value loads (single and
+// paired) that widen bf16 to f32, the small kernel-argument structs, and
+// the cooperative launch used by the chained (multi-level) kernels.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -27,6 +27,31 @@ struct Taus {
 __device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
   return __bfloat162float(p[i]);
+}
+
+// The values at i and i + 1 (the second only when `second`, else 0),
+// widened to f32.  VEC: one 2-wide load, for an i whose address is
+// aligned to two values.
+struct Pair {
+  float a, b;
+};
+template <bool VEC>
+__device__ __forceinline__ Pair ld_pair(const float* p, long i, bool second) {
+  if (VEC) {
+    const float2 v = *reinterpret_cast<const float2*>(p + i);
+    return {v.x, v.y};
+  }
+  return {p[i], second ? p[i + 1] : 0.f};
+}
+template <bool VEC>
+__device__ __forceinline__ Pair ld_pair(const __nv_bfloat16* p, long i,
+                                        bool second) {
+  if (VEC) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p + i));
+    return {v.x, v.y};
+  }
+  return {__bfloat162float(p[i]), second ? __bfloat162float(p[i + 1]) : 0.f};
 }
 
 // (A x)[i] of a row-aligned DIA operator; x is haloed and t = i + halo.

@@ -14,6 +14,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,10 +28,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "saamge_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 MAX_ROOTS = 32          # SAAMGE_MAX_ROOTS of csrc/common.cuh
+SMEM_MAX = 232448       # shared bytes one block may use on an H100
+GRID_MAX = (2 ** 31 - 1, 65535)
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None          # wall time of the build in this process
+ptxas_log = {}                # source name -> nvcc -Xptxas -v report
 
 
 class KernelBuildError(RuntimeError):
@@ -67,13 +71,13 @@ def _declare(lib) -> None:
     lib.saamge_stencil.argtypes = [I, P, I, P, I, I, I, P, P, P, F, P, P]
     lib.saamge_wavefront.argtypes = [P, I, P, I, I, I, P, I, I, P, P, P,
                                      P, P, P, P]
-    lib.saamge_window_R.argtypes = [I, P, P, P, P, P]
+    lib.saamge_window_R.argtypes = [I, P, P, P, P, P, P]
     lib.saamge_window_P.argtypes = [I, P, P, P, P, P]
     lib.saamge_mid_chain.argtypes = [P, I, P, I, P, I, I, P, P, P, P, P,
                                      P, P]
     lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, F, P,
                                  P]
-    lib.saamge_midmv.argtypes = [P, I, P, I, P, P, P]
+    lib.saamge_midmv.argtypes = [I, P, I, P, I, P, P, P, P, F, P, P]
     lib.saamge_contract.argtypes = [I, I, P, I, I, I, P, P, P]
     for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
                  "saamge_window_P", "saamge_mid_chain", "saamge_mfree",
@@ -83,20 +87,22 @@ def _declare(lib) -> None:
     lib.saamge_error_string.restype = ctypes.c_char_p
 
 
-def _run(cmds) -> None:
+def _run(cmds):
     """Run the nvcc commands in parallel; wait for all, then raise if
-    any failed."""
+    any failed.  Returns each command's standard error."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise KernelBuildError("\n".join(failed))
+    return errs
 
 
 def _compile(so: str) -> None:
@@ -105,12 +111,14 @@ def _compile(so: str) -> None:
     os.makedirs(work, exist_ok=True)
     try:
         objs, cmds = [], []
-        for src in (p for p in sources() if p.endswith(".cu")):
+        srcs = [p for p in sources() if p.endswith(".cu")]
+        for src in srcs:
             obj = os.path.join(work, os.path.basename(src) + ".o")
             objs.append(obj)
-            cmds.append([nvcc] + NVCC_FLAGS + ["-I", CSRC, "-c", src,
-                                               "-o", obj])
-        _run(cmds)
+            cmds.append([nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-I", CSRC,
+                                               "-c", src, "-o", obj])
+        for src, err in zip(srcs, _run(cmds)):
+            ptxas_log[os.path.basename(src)] = err
         tmp = os.path.join(work, "lib.so")
         _run([[nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs])
         os.replace(tmp, so)
@@ -133,6 +141,41 @@ def load():
         build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib
+
+
+def check_plan(threads: int, grid, smem: int) -> None:
+    """Raise unless a launch plan is within the card's limits."""
+    if not (32 <= threads <= 1024 and threads % 32 == 0):
+        raise ValueError(f"{threads} threads per block")
+    if not all(1 <= g <= m for g, m in zip(grid, GRID_MAX)):
+        raise ValueError(f"grid {grid} outside {GRID_MAX}")
+    if not 0 <= smem <= SMEM_MAX:
+        raise ValueError(f"{smem} shared bytes > {SMEM_MAX}")
+
+
+def ptxas_resources(source: str, kernel: str):
+    """[(entry, registers, static shared bytes, spill stores, spill
+    loads)] of the entry functions of ``source`` whose mangled name holds
+    ``kernel``, from the -Xptxas -v report of this process's build."""
+    out, entry, spill = [], None, (0, 0)
+    for line in ptxas_log.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if kernel in m.group(1) else None
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((entry, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, *spill))
+            entry = None
+    return out
 
 
 def check_launch(lib, code: int, what: str) -> None:

@@ -1,4 +1,12 @@
-"""One mid-level brick-block matvec over packed used-slot rectangles.
+"""One pass of the mid level's brick-block operator over packed
+used-slot rectangles, in three modes (those of ops/stencil.py):
+
+    spmv      y = A1 x
+    residual  y = b - A1 x
+    root      y = x + dinv * (b - A1 x) * inv_tau
+
+in the op order of the JAX chain ``x1 + dinv1 * (b1 - A x1) * it``
+(saamge_tpu/solve/structured.py mid_correct).
 
 The mid operator is the one of ops/midsmooth.py (slot-major padded
 layout, coarse dof (brick p, slot s) at ``s * NB + p``; brick offsets
@@ -13,11 +21,15 @@ saamge_tpu/ops/pallas_midmv.py `_build_chunked_mv`) for CUDA tensors and
 runs ``midmv_plain`` for CPU tensors.  Both widen bf16 blocks to f32 and
 multiply by the f32 x in f32; the TPU kernel rounds x and each product
 to bf16.  Its lane chunking (``chunk_plan``) is a VMEM budget and is not
-ported."""
+ported.  The kernel's launch plan is ``midmv_plan``; the ctypes geometry
+and plan of an operator are built once and memoised on
+(doffs, rects, bricks, bs)."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +38,43 @@ import torch.nn.functional as F
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.midsmooth import MAX_OFFSETS
+
+MODES = {"spmv": 0, "residual": 1, "root": 2}
+TILE = 64             # MIDMV_TILE of csrc/midmv.cu: bricks per block
+SLOTS = 5             # MIDMV_SLOTS: output slots per block
+TASK = 4              # MIDMV_TASK: rows of one offset a warp takes at once
+WARPS = 16            # warps per block, splitting the tasks
+
+
+class MidmvPlan(NamedTuple):
+    """Launch of csrc/midmv.cu: block (tx, g) computes output slots
+    g * SLOTS .. g * SLOTS + SLOTS - 1 of bricks [tx * TILE, (tx + 1) *
+    TILE) of the NB."""
+    threads: int
+    grid: Tuple[int, int]
+    smem: int
+
+    def ints(self):
+        return (self.threads, *self.grid, self.smem)
+
+    def block_outputs(self, NB: int, bs: int, tx: int, g: int) -> np.ndarray:
+        """Flat output indices ``s * NB + p`` that block (tx, g) writes,
+        as the kernel computes them."""
+        p = np.arange(tx * TILE, min((tx + 1) * TILE, NB))
+        s = np.arange(g * SLOTS, min((g + 1) * SLOTS, bs))
+        return (s[:, None] * NB + p[None]).reshape(-1)
+
+
+def midmv_plan(bricks, bs: int, rects) -> MidmvPlan:
+    """Shared bytes: the block's task list (at most sum_k ceil(r2_k /
+    TASK) tasks) and the warps' partial sums (SLOTS x TILE each)."""
+    NB = int(np.prod(bricks))
+    tasks = sum(-(-r2 // TASK) for _, r2 in rects)
+    plan = MidmvPlan(threads=32 * WARPS,
+                     grid=(-(-NB // TILE), -(-int(bs) // SLOTS)),
+                     smem=4 * (tasks + WARPS * SLOTS * TILE))
+    _build.check_plan(plan.threads, plan.grid, plan.smem)
+    return plan
 
 
 def packed_starts(rects, NB: int):
@@ -44,8 +93,10 @@ def pack_blocks(blocks: np.ndarray, rects, dtype) -> torch.Tensor:
     return torch.as_tensor(np.concatenate(parts)).to(dtype)
 
 
-def midmv_plain(packed, doffs, rects, bricks, bs: int, x) -> torch.Tensor:
-    """y = A1 x on slot-major flat (bs * NB,) vectors (plain torch)."""
+def midmv_plain(packed, doffs, rects, bricks, bs: int, x, mode="spmv",
+                b=None, dinv=None, inv_tau: float = 0.0) -> torch.Tensor:
+    """One pass in ``mode`` on slot-major flat (bs * NB,) vectors (plain
+    torch)."""
     BX, BY, BZ = bricks
     NB = BX * BY * BZ
     starts, _ = packed_starts(rects, NB)
@@ -56,37 +107,69 @@ def midmv_plain(packed, doffs, rects, bricks, bs: int, x) -> torch.Tensor:
         view = xp[:r2, 1 + dx:1 + dx + BX, 1 + dy:1 + dy + BY,
                   1 + dz:1 + dz + BZ].reshape(r2, NB)
         y[:r1] += (B.to(torch.float32) * view[None]).sum(1)
-    return y.reshape(-1)
+    ax = y.reshape(-1)
+    if mode == "spmv":
+        return ax
+    if mode == "residual":
+        return b - ax
+    if mode == "root":
+        return x + dinv * (b - ax) * inv_tau
+    raise ValueError(mode)
 
 
-def midmv(packed, doffs, rects, bricks, bs: int, x) -> torch.Tensor:
-    """y = A1 x: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if not is_cuda(packed, x):
-        return midmv_plain(packed, doffs, rects, bricks, bs, x)
+@functools.lru_cache(maxsize=32)
+def _launch_args(doffs, rects, bricks, bs: int):
+    """(ctypes geometry, ctypes plan, packed length) of one operator,
+    checked once: BX, BY, BZ, bs, then per offset (dx, dy, dz, r1, r2)."""
     kd = len(doffs)
     if not 1 <= kd <= MAX_OFFSETS or len(rects) != kd:
         raise ValueError(f"{kd} block offsets, {len(rects)} rects")
-    NB = bricks[0] * bricks[1] * bricks[2]
     if any(not (0 <= r <= bs) for rect in rects for r in rect):
         raise ValueError(f"rects {rects} exceed bs={bs}")
-    check(packed, "packed", (torch.float32, torch.bfloat16),
-          (packed_starts(rects, NB)[1],))
-    check(x, "x", torch.float32, (bs * NB,))
+    NB = bricks[0] * bricks[1] * bricks[2]
     geom = list(bricks) + [bs]
     for (dx, dy, dz), (r1, r2) in zip(doffs, rects):
         geom += [dx, dy, dz, r1, r2]
-    geom = _build.int_array(geom)
+    plan = midmv_plan(bricks, bs, rects)
+    return (_build.int_array(geom), _build.int_array(plan.ints()),
+            packed_starts(rects, NB)[1])
+
+
+def midmv(packed, doffs, rects, bricks, bs: int, x, mode="spmv", b=None,
+          dinv=None, inv_tau: float = 0.0) -> torch.Tensor:
+    """One pass in ``mode`` ('spmv', 'residual' or 'root'): the kernel for
+    CUDA tensors, the plain version for CPU tensors.  ``doffs``,
+    ``rects`` and ``bricks`` are tuples (the memo's key)."""
+    if mode not in MODES:
+        raise ValueError(mode)
+    vecs = {"x": x}
+    if mode != "spmv":
+        vecs["b"] = b
+    if mode == "root":
+        vecs["dinv"] = dinv
+    if not is_cuda(packed, *vecs.values()):
+        return midmv_plain(packed, doffs, rects, bricks, bs, x, mode, b,
+                           dinv, inv_tau)
+    geom, plan, total = _launch_args(doffs, rects, bricks, bs)
+    check(packed, "packed", (torch.float32, torch.bfloat16), (total,))
+    for name, v in vecs.items():
+        check(v, name, torch.float32,
+              (bs * bricks[0] * bricks[1] * bricks[2],))
     lib = _build.load()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = lib.saamge_midmv(
-            packed.data_ptr(), int(packed.dtype == torch.bfloat16),
-            ctypes.addressof(geom), kd, x.data_ptr(), y.data_ptr(),
-            _build.stream_ptr(x.device))
+            MODES[mode], packed.data_ptr(),
+            int(packed.dtype == torch.bfloat16), ctypes.addressof(geom),
+            len(doffs), ctypes.addressof(plan), x.data_ptr(),
+            b.data_ptr() if "b" in vecs else None,
+            dinv.data_ptr() if "dinv" in vecs else None, float(inv_tau),
+            y.data_ptr(), _build.stream_ptr(x.device))
     _build.check_launch(lib, code, "midmv")
     midmv.launches += 1
+    midmv.mode_launches[mode] += 1
     return y
 
 
 midmv.launches = 0
+midmv.mode_launches = dict.fromkeys(MODES, 0)

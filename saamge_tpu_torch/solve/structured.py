@@ -20,7 +20,7 @@ JAX package's ``run_capacity.py`` flags) keeps no stored fine operator
 and no full mid blocks on the device:
 
   fine smoothing: chained matrix-free roots + residual  (ops/mfree.py)
-  mid smoothing: chained roots on the packed matvec     (ops/midmv.py)
+  mid smoothing: one packed pass per root + residual    (ops/midmv.py)
   PCG operator: the f32 matrix-free pass                (ops/mfree.py)
 
 with the same tent R/P and coarsest level (its inverse optionally
@@ -232,7 +232,7 @@ class StructuredHierarchy(torch.nn.Module):
     coefficient field and node mask, ops/mfree.MatrixFreeQ1).  The mid
     operator is the full blocks ``A1_blocks`` (k1, bs, bs, NB), run by
     the resident chain, or the packed rectangles ``A1_packed``
-    (ops/midmv.py), run as chained matvecs; the other is None.  Other
+    (ops/midmv.py), run as one root pass per root; the other is None.  Other
     buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
     blocks; dinv1 (bs*NB,) mid scaling (0 on padding slots); Rst1 (bs2,
     win, NB2) superbrick tent blocks; flat_id / flat_id2 real-dof ids in
@@ -356,10 +356,12 @@ class StructuredHierarchy(torch.nn.Module):
         y2[self.flat_id2] = self.Ainv.to(torch.float32) @ rc2[self.flat_id2]
         return self.apply_P1(y2)
 
-    def mid_matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A1 x over the packed rectangles (hbm_frugal)."""
+    def mid_pass(self, mode: str, x: torch.Tensor, b=None,
+                 inv_tau: float = 0.0) -> torch.Tensor:
+        """One packed-operator pass (hbm_frugal): A1 x, b - A1 x, or the
+        root x + dinv1 (b - A1 x) inv_tau (ops/midmv.py)."""
         return midmv(self.A1_packed, self.doffs, self.rects, self.geo.bricks,
-                     self.bs, x)
+                     self.bs, x, mode, b, self.dinv1, inv_tau)
 
     def mid_correct(self, rc: torch.Tensor) -> torch.Tensor:
         """Pre mid-chain (+ residual), coarsest correction, post
@@ -371,13 +373,14 @@ class StructuredHierarchy(torch.nn.Module):
                                emit_res=True)
             x1 = x1 + self.coarsest_correct(r1)
             return mid_chain(*args, rc, self.dinv1, x1)
-        # chained packed matvecs, in the op order of the JAX mid_correct
+        # one packed pass per root and one for the residual, each in the
+        # op order of the JAX mid_correct
         x1 = torch.zeros_like(rc)
         for it in self.taus1:
-            x1 = x1 + self.dinv1 * (rc - self.mid_matvec(x1)) * it
-        x1 = x1 + self.coarsest_correct(rc - self.mid_matvec(x1))
+            x1 = self.mid_pass("root", x1, rc, it)
+        x1 = x1 + self.coarsest_correct(self.mid_pass("residual", x1, rc))
         for it in self.taus1:
-            x1 = x1 + self.dinv1 * (rc - self.mid_matvec(x1)) * it
+            x1 = self.mid_pass("root", x1, rc, it)
         return x1
 
     def _smooth_h(self, A, bh, xh, emit_res: bool = False):

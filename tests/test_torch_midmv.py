@@ -2,7 +2,9 @@
 JAX lane-chunked Pallas matvec (pallas_midmv.chunked_matvec, interpret
 mode, host-packed blocks as in the capacity configuration) on the
 flagship n=16 mid operator, whose used-slot rectangles are ragged, and
-against the port's full-block matvec."""
+against the port's full-block matvec; its residual and root modes
+against the JAX chain's expressions around that matvec; the kernel's
+launch plan and memoised geometry."""
 
 import numpy as np
 import pytest
@@ -14,8 +16,10 @@ from saamge_tpu.ops.pallas_midmv import chunked_matvec, prep_blocks_chunked
 from saamge_tpu.solve import structured as JS
 
 from saamge_tpu_torch import flagship_problem
-from saamge_tpu_torch.ops.midmv import (midmv, midmv_plain, pack_blocks,
-                                        packed_starts)
+from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.ops import midmv as M
+from saamge_tpu_torch.ops.midmv import (midmv, midmv_plain, midmv_plan,
+                                        pack_blocks, packed_starts)
 from saamge_tpu_torch.ops.midsmooth import brick_block_matvec
 from saamge_tpu_torch.solve.structured import (brick_block_from_csr,
                                                coarse_brick_numbering)
@@ -41,22 +45,114 @@ def mid():
                 blocks=blocks, doffs=doffs, rects=rects, x=x)
 
 
+@pytest.fixture(scope="module")
+def jax_ax(mid):
+    """A x of the JAX chunked Pallas matvec (interpret mode), per block
+    dtype, computed once."""
+    cache = {}
+
+    def get(dtype):
+        if dtype not in cache:
+            jdt = DTYPES[dtype][1]
+            geo, bs = mid["geo"], mid["bs"]
+            hb = []
+            op = JS.BrickBlockOp.from_csr(mid["Ac"], mid["cd_brick"],
+                                          mid["slot"], bs, geo.bricks, jdt,
+                                          host_blocks_out=hb)
+            assert op.doffs == mid["doffs"] and op.rects == mid["rects"]
+            jblocks, Lc = prep_blocks_chunked(op, host_blocks=hb[0])
+            cache[dtype] = chunked_matvec(jblocks, op.doffs, op.rects,
+                                          geo.bricks, bs, geo.num_bricks,
+                                          Lc, jnp.asarray(mid["x"]),
+                                          interpret=True)
+        return cache[dtype]
+    return get
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_midmv_matches_pallas(mid, dtype):
+@pytest.mark.parametrize("mode", ["spmv", "residual", "root"])
+def test_midmv_modes_match_jax(mid, jax_ax, mode, dtype):
+    """Each mode against the JAX capacity chain's expression around
+    chunked_matvec (saamge_tpu/solve/structured.py mid_correct: the root
+    x1 + dinv1 * (b1 - A x1) * it, the residual b1 - A x1), with the
+    mid smoother's dinv (0 on padding slots); f32 blocks at 1e-5
+    relative, bf16 at 1e-2 (the JAX kernel rounds x and each product to
+    bf16, the port multiplies in f32)."""
+    tdt = DTYPES[dtype][0]
+    geo, bs = mid["geo"], mid["bs"]
+    n = bs * geo.num_bricks
+    rng = np.random.default_rng(7)
+    b = rng.standard_normal(n).astype(np.float32)
+    dinv = np.zeros(n, np.float32)
+    fid = mid["slot"] * geo.num_bricks + mid["cd_brick"]
+    dinv[fid] = 1.0 / mid["Ac"].diagonal()
+    inv_tau = np.float32(0.7)
+    ax, x = jax_ax(dtype), jnp.asarray(mid["x"])
+    ref = {"spmv": ax, "residual": jnp.asarray(b) - ax,
+           "root": x + jnp.asarray(dinv) * (jnp.asarray(b) - ax)
+           * inv_tau}[mode]
+    ref = np.asarray(ref)
+    packed = pack_blocks(mid["blocks"], mid["rects"], tdt)
+    got = midmv(packed, mid["doffs"], mid["rects"], geo.bricks, bs,
+                torch.as_tensor(mid["x"]), mode, torch.as_tensor(b),
+                torch.as_tensor(dinv), float(inv_tau)).numpy()
+    tol = 1e-5 if dtype == "f32" else 1e-2
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+# the n=96 capacity operator, ragged grids (no side a multiple of the
+# tile), and the n=16 one of the fixture
+PLAN_SHAPES = [((12, 12, 12), 20), ((5, 3, 7), 13), ((6, 5, 4), 13),
+               ((4, 4, 4), 9)]
+
+
+@pytest.mark.parametrize("bricks,bs", PLAN_SHAPES)
+def test_midmv_plan_covers_every_output_once(bricks, bs):
+    NB = int(np.prod(bricks))
+    # 27 offsets, ragged rectangles with r1 = 0, r2 = bs and (bs, bs)
+    rng = np.random.default_rng(3)
+    rects = ((0, 5), (bs, bs), (3, bs)) + tuple(
+        (int(a), int(b)) for a, b in rng.integers(0, bs + 1, (24, 2)))
+    plan = midmv_plan(bricks, bs, rects)
+    tasks = sum(-(-r2 // M.TASK) for _, r2 in rects)
+    assert plan.threads == 32 * M.WARPS <= 1024
+    assert plan.smem == 4 * (tasks + M.WARPS * M.SLOTS * M.TILE)
+    assert plan.smem <= _build.SMEM_MAX
+    assert plan.grid[0] * M.TILE >= NB and plan.grid[1] * M.SLOTS >= bs
+    assert plan.grid[1] <= 65535
+    got = np.concatenate([plan.block_outputs(NB, bs, tx, g)
+                          for tx in range(plan.grid[0])
+                          for g in range(plan.grid[1])])
+    assert len(got) == bs * NB
+    np.testing.assert_array_equal(np.sort(got), np.arange(bs * NB))
+
+
+def test_midmv_geometry_is_memoised(mid):
+    geo, bs = mid["geo"], mid["bs"]
+    key = (mid["doffs"], mid["rects"], geo.bricks, bs)
+    got = M._launch_args(*key)
+    assert M._launch_args(*key) is got
+    fresh = M._launch_args.__wrapped__(*key)
+    for a, b in zip(got[:2], fresh[:2]):
+        assert list(a) == list(b)
+    assert got[2] == fresh[2] == packed_starts(mid["rects"],
+                                               geo.num_bricks)[1]
+    geom = list(got[0])
+    assert geom[:4] == [*geo.bricks, bs]
+    assert geom[4:] == [v for d, r in zip(mid["doffs"], mid["rects"])
+                        for v in (*d, *r)]
+    assert list(got[1]) == list(midmv_plan(geo.bricks, bs,
+                                           mid["rects"]).ints())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_midmv_matches_pallas(mid, jax_ax, dtype):
     """f32 blocks at 1e-5 relative; bf16 blocks at 1e-2 (the JAX kernel
     rounds x and each product to bf16, the port multiplies in f32)."""
-    tdt, jdt = DTYPES[dtype]
+    tdt = DTYPES[dtype][0]
     geo, bs, rects = mid["geo"], mid["bs"], mid["rects"]
     assert len(set(rects)) > 1                  # ragged rectangles
-    hb = []
-    op = JS.BrickBlockOp.from_csr(mid["Ac"], mid["cd_brick"], mid["slot"],
-                                  bs, geo.bricks, jdt, host_blocks_out=hb)
-    assert op.doffs == mid["doffs"] and op.rects == rects
-    jblocks, Lc = prep_blocks_chunked(op, host_blocks=hb[0])
-    NB = geo.num_bricks
-    ref = np.asarray(chunked_matvec(jblocks, op.doffs, op.rects, geo.bricks,
-                                    bs, NB, Lc, jnp.asarray(mid["x"]),
-                                    interpret=True))
+    ref = np.asarray(jax_ax(dtype))
     packed = pack_blocks(mid["blocks"], rects, tdt)
     got = midmv(packed, mid["doffs"], rects, geo.bricks, bs,
                 torch.as_tensor(mid["x"])).numpy()

@@ -2,7 +2,8 @@
 against the JAX package on the flagship n=16 setup: the XLA
 apply_R / apply_P of a bf16-Rst hierarchy (same numerics: bf16 Rst,
 f32 everything else), the Pallas window kernels (interpret mode; they
-truncate window values to bf16), and the host tent CSR."""
+truncate window values to bf16), and the host tent CSR; window R's
+launch plan and memoised geometry."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,10 @@ import jax.numpy as jnp
 from saamge_tpu.solve import structured as JS
 
 from saamge_tpu_torch import compile_structured, flagship_problem
-from saamge_tpu_torch.ops.window import (box_index, window_P,
-                                         window_R)
+from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.ops import window as W
+from saamge_tpu_torch.ops.window import (box_index, window_P, window_R,
+                                         window_R_plan)
 
 torch.set_num_threads(1)
 
@@ -95,3 +98,50 @@ def test_box_index_matches_extract_boxes():
     ref = np.asarray(JS.extract_boxes(jnp.asarray(r3), be, bricks))
     idx = box_index(bricks, be, "cpu").numpy()
     np.testing.assert_array_equal(r3.reshape(-1)[idx], ref)
+
+
+# the n=96 flagship / capacity tent, ragged grids (no side a multiple of
+# the tile; odd and even BZ), and the n=16 one of the fixture
+R_PLAN_SHAPES = [((12, 12, 12), (8, 8, 8), 20), ((5, 3, 7), (4, 4, 4), 13),
+                 ((5, 3, 7), (8, 8, 8), 13), ((6, 5, 4), (8, 8, 8), 13),
+                 ((4, 4, 4), (4, 4, 4), 9)]
+
+
+@pytest.mark.parametrize("bricks,be,bs", R_PLAN_SHAPES)
+def test_window_R_plan_covers_every_output_once(bricks, be, bs):
+    plan = window_R_plan(bricks, be, bs)
+    NB = int(np.prod(bricks))
+    assert plan.smem <= _build.SMEM_MAX
+    assert plan.threads <= W.MAX_THREADS
+    assert plan.grid == (NB // bricks[2], -(-bs // W.SLOTS_PER_BLOCK))
+    assert plan.grid[1] <= 65535
+    # every (u-plane, v-range, brick pair) item has a thread
+    items = (be[0] + 1) * plan.vs * ((bricks[2] + 1) // 2)
+    assert plan.threads >= min(items, W.MAX_THREADS)
+    got = np.concatenate([plan.block_outputs(bricks, bs, tx, g)
+                          for tx in range(plan.grid[0])
+                          for g in range(plan.grid[1])])
+    assert len(got) == bs * NB
+    np.testing.assert_array_equal(np.sort(got), np.arange(bs * NB))
+
+
+def test_window_R_plan_n96_keeps_five_blocks_per_sm():
+    """n=96: 144 z-lines x 5 slot groups; 41 KB of shared memory leaves
+    room for five blocks on an SM."""
+    plan = window_R_plan((12, 12, 12), (8, 8, 8), 20)
+    assert plan.grid == (144, 5) and (plan.vs, plan.pitch) == (3, 109)
+    assert 5 * (plan.smem + 1024) <= 228 * 1024
+
+
+def test_window_R_plan_refuses_an_oversized_slab():
+    with pytest.raises(ValueError, match="exceeds"):
+        window_R_plan((2, 2, 40), (32, 32, 32), 20)
+
+
+def test_window_geometry_is_memoised():
+    key = ((5, 3, 7), (4, 4, 4), 13)
+    geom, plan = W._geom(*key), W._R_plan(*key)
+    assert W._geom(*key) is geom and W._R_plan(*key) is plan
+    assert list(geom) == [5, 3, 7, 4, 4, 4, 13]
+    assert list(plan) == list(window_R_plan(*key).ints())
+    assert list(W._R_plan.__wrapped__(*key)) == list(plan)
