@@ -8,13 +8,16 @@ Phases (one line each; any failure raises and exits non-zero):
   2. build    -- nvcc-builds the hand-written kernels (csrc/*.cu, sm_90a),
                  one nvcc per source, in parallel; prints ptxas's
                  registers, shared bytes and spills of the packed mid
-                 matvec and window R kernels
-  2b. ragged  -- those two kernels against their plain versions on brick
-                 grids with no side a multiple of a tile ((5,3,7), odd:
-                 the scalar-load path; (6,5,4), even: the 2-wide one),
+                 matvec, window R / P and sweep kernels
+  2b. ragged  -- those kernels against their plain versions: brick grids
+                 with no side a multiple of a tile ((5,3,7), odd: the
+                 scalar-load path; (6,5,4), even: the 2-wide one),
                  bs = 13, ragged rectangles (r1 = 0, r2 = bs, (bs, bs)),
                  brick_elems (4,4,4) and (8,8,8), f32 and bf16, every
-                 matvec mode; two launches must agree bit for bit
+                 matvec mode, window P on dense and sparse slot ranges;
+                 the sweep on odd grids, 1 / 2 / 10 roots, with and
+                 without the residual, 27 and 7 taps; two launches must
+                 agree bit for bit
   3. setup    -- ONE flagship host setup (912,673 dofs at n=96) with the
                  matrix-free factors; from it the flagship hierarchy, the
                  full-capacity one (mfree + hbm_frugal + bf16 coarsest
@@ -43,9 +46,16 @@ Phases (one line each; any failure raises and exits non-zero):
                  stencil and no structured-only kernel
 Each hierarchy leaves the card before the next arrives, so each path's
 peak device memory is its own.  The last two lines are the kernels' JSON
-record and the result line {"ok": true, "device": {...}}.  ``--n``,
-``--brick`` and ``--general-n`` shrink the problems for development
-only."""
+record and the result line {"ok": true, "device": {...}}.
+
+Development options (the run with no arguments is the full check):
+``--n``, ``--brick`` and ``--general-n`` shrink the problems;
+``--paths`` runs some of flagship, capacity, contract and general;
+``--kernels-only`` stops each path after its kernel phase (no V-cycle,
+no PCG); ``--synthetic`` skips every host setup and times the stencil
+and the sweep on n=96-shaped operands made from a numpy seed (with the
+sweep's time per level and the time of one grid barrier of its grid),
+and the general smoother on n=64-shaped ones."""
 
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ PCG_MAX = {1e-6: 19, 1e-8: 25}        # JAX records 18 / 24 at n=96
 GENERAL_DIMS = [16652, 367]           # coarse dims of hexkway n=64
 GENERAL_PCG_MAX = {1e-6: 18, 1e-8: 22}  # host f64 PCG 17 / 21, plus 1
 TOLS = (1e-6, 1e-8)
+PATHS = ("flagship", "capacity", "contract", "general")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_S = 67e12          # H100 SXM f32 outside the tensor cores
 T0 = time.perf_counter()
@@ -210,11 +221,39 @@ def check_modes(name, kern, plain, modes, torch, tol=1e-5):
             raise RuntimeError(f"{name} {mode}: rel err {rel:.3e}")
 
 
-def ragged_checks(dev, torch, np, midmv, midmv_plain, window_R,
-                  window_R_plain):
-    """The packed mid matvec (every mode) and window R against their
-    plain versions on ragged shapes from a numpy seed, f32 and bf16;
-    each result must also repeat bit for bit."""
+def stencil_offsets(dims):
+    """The 27 offsets of a Q1 stencil on a dims[0] x dims[1] x dims[2]
+    node grid, rows x-major (the offsets of hex_mesh's operators)."""
+    _, Y, Z = dims
+    return tuple(dx * Y * Z + dy * Z + dz for dx in (-1, 0, 1)
+                 for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+
+
+def random_dia(DIA, torch, np, rng, offsets, n, dtype, dev):
+    """A diagonally dominant random DIA operator (unit centre tap), so
+    that chained roots stay bounded."""
+    vals = rng.uniform(-0.05, 0.05, (len(offsets), n)).astype(np.float32)
+    vals[list(offsets).index(0)] = 1.0
+    return DIA(torch.as_tensor(vals).to(dtype).to(dev), tuple(offsets), n)
+
+
+def sweep_vectors(A, torch, np, rng, dev):
+    """Haloed x, b and positive dinv of A's size."""
+    x, b = (torch.as_tensor(rng.standard_normal(A.n), dtype=torch.float32)
+            for _ in range(2))
+    dinv = torch.as_tensor(rng.uniform(0.5, 1.0, A.n), dtype=torch.float32)
+    return tuple(A.pad(v).to(dev) for v in (x, b, dinv))
+
+
+def ragged_checks(dev, torch, np, k):
+    """The packed mid matvec (every mode), window R and P, and the sweep
+    against their plain versions on ragged shapes from a numpy seed, f32
+    and bf16; each result must also repeat bit for bit.  Window P runs
+    on a dense tent (every slot range [0, bs)) and on a sparse one with
+    all-zero and partial slot ranges, and must equal, bit for bit, its
+    own launch with the full ranges (the dense slot loop).  The sweep
+    runs on odd grids, with 1, 2 and 10 roots, with and without the
+    residual, and on a 7-point operator (the runtime tap count)."""
     rng = np.random.default_rng(11)
     bs = 13
     doffs = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -226,41 +265,93 @@ def ragged_checks(dev, torch, np, midmv, midmv_plain, window_R,
         return torch.as_tensor(rng.standard_normal(shape),
                                dtype=torch.float32).to(dev)
 
-    worst, n = 0.0, 0
+    cases = []
     for bricks in ((5, 3, 7), (6, 5, 4)):
         NB = bricks[0] * bricks[1] * bricks[2]
         x, b, dinv = vec(bs * NB), vec(bs * NB), vec(bs * NB)
         total = sum(r1 * r2 * NB for r1, r2 in rects)
-        cases = []
         for dtype in (torch.float32, torch.bfloat16):
             packed = vec(total).to(dtype)
             for mode in ("spmv", "residual", "root"):
                 args = (packed, doffs, rects, bricks, bs, x, mode, b, dinv,
                         0.7)
                 cases.append((f"midmv {bricks} {dtype} {mode}",
-                              lambda a=args: midmv(*a),
-                              lambda a=args: midmv_plain(*a)))
+                              lambda a=args: k["midmv"](*a),
+                              lambda a=args: k["midmv_plain"](*a), None))
             for be in ((4, 4, 4), (8, 8, 8)):
                 box = (be[0] + 1) * (be[1] + 1) * (be[2] + 1)
                 nodes = [B * e + 1 for B, e in zip(bricks, be)]
                 Rst = vec(bs, box, NB).to(dtype)
                 r = vec(nodes[0] * nodes[1] * nodes[2])
                 cases.append((f"window_R {bricks} {be} {dtype}",
-                              lambda a=(Rst, r, bricks, be): window_R(*a),
                               lambda a=(Rst, r, bricks, be):
-                              window_R_plain(*a)))
-        n += len(cases)
-        for what, kern, plain in cases:
-            got = kern()
-            again = kern()
-            _, rel = rel_err(got, plain())
-            worst = max(worst, rel)
-            if not rel <= 1e-5:
-                raise RuntimeError(f"ragged {what}: rel err {rel:.3e}")
-            if not torch.equal(got, again):
-                raise RuntimeError(f"ragged {what}: two launches differ")
-    log("ragged", cases=n, max_rel_err=f"{worst:.3e}",
-        tol=1e-5, bit_reproducible=True)
+                              k["window_R"](*a),
+                              lambda a=(Rst, r, bricks, be):
+                              k["window_R_plain"](*a), None))
+                # sparse tent: per column a random slot range, a quarter
+                # of the columns all zero
+                lo = torch.as_tensor(rng.integers(0, bs, (box, NB)))
+                ln = torch.as_tensor(rng.integers(0, 4, (box, NB)))
+                ln[torch.as_tensor(rng.random((box, NB)) < 0.25)] = 0
+                s = torch.arange(bs)[:, None, None]
+                keep = ((s >= lo) & (s < lo + ln)).to(dev)
+                Rsp = torch.where(keep, vec(bs, box, NB), 0.0).to(dtype)
+                xc = vec(bs * NB)
+                full = torch.stack([torch.zeros(box, NB),
+                                    torch.full((box, NB), bs)]) \
+                    .to(torch.uint8).to(dev)
+                for kind, R in (("dense", Rst), ("sparse", Rsp)):
+                    rg = k["slot_ranges"](R)
+                    a = (R, xc, bricks, be)
+                    cases.append((f"window_P {bricks} {be} {dtype} {kind}",
+                                  lambda a=a, rg=rg:
+                                  k["window_P"](*a, ranges=rg),
+                                  lambda a=a: k["window_P_plain"](*a),
+                                  lambda a=a, f=full:
+                                  k["window_P"](*a, ranges=f)))
+    DIA = k["DIA"]
+    for dims in ((23, 29, 31), (17, 13, 47)):
+        n = dims[0] * dims[1] * dims[2]
+        taus = tuple(float(t) for t in rng.uniform(0.3, 0.9, 10))
+        for dtype in (torch.float32, torch.bfloat16):
+            A = random_dia(DIA, torch, np, rng, stencil_offsets(dims), n,
+                           dtype, dev)
+            xh, bh, dh = sweep_vectors(A, torch, np, rng, dev)
+            for roots in (1, 2, 10):
+                for res in (False, True):
+                    a = (A, taus[:roots], bh, dh, xh, res)
+                    cases.append((f"sweep {dims} {dtype} {roots} roots "
+                                  f"res={res}",
+                                  lambda a=a: k["wavefront"](*a),
+                                  lambda a=a: k["wavefront_plain"](*a),
+                                  None))
+        # 7 taps: the runtime tap count
+        A7 = random_dia(DIA, torch, np, rng,
+                        (-dims[1] * dims[2], -dims[2], -1, 0, 1, dims[2],
+                         dims[1] * dims[2]), n, torch.float32, dev)
+        xh, bh, dh = sweep_vectors(A7, torch, np, rng, dev)
+        a = (A7, taus, bh, dh, xh, True)
+        cases.append((f"sweep {dims} 7 taps", lambda a=a: k["wavefront"](*a),
+                      lambda a=a: k["wavefront_plain"](*a), None))
+    worst = 0.0
+    for what, kern, plain, same in cases:
+        got = kern()
+        again = kern()
+        _, rel = rel_err(got, plain())
+        worst = max(worst, rel)
+        tol = 1e-4 if what.startswith("sweep") else 1e-5
+        if not rel <= tol:
+            raise RuntimeError(f"ragged {what}: rel err {rel:.3e} > {tol}")
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise RuntimeError(f"ragged {what}: two launches differ")
+        if same is not None and not torch.equal(got[0], same()):
+            raise RuntimeError(f"ragged {what}: the slot ranges changed the "
+                               "sum of the dense slot loop")
+    log("ragged", cases=len(cases), max_rel_err=f"{worst:.3e}",
+        tol="1e-5 (sweep 1e-4)", bit_reproducible=True,
+        window_P_ranges_bit_equal_dense_loop=True)
 
 
 def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
@@ -338,6 +429,105 @@ def leave_card(torch):
     torch.cuda.empty_cache()
 
 
+BARRIER_PROBE = r'''
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+__global__ void __launch_bounds__(256) barriers(int syncs) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < syncs; ++i) grid.sync();
+}
+extern "C" int grid_barriers(int blocks, int syncs, void* stream) {
+  void* args[] = {(void*)&syncs};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)barriers, dim3(blocks), dim3(256), args, 0,
+      (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+'''
+
+
+def barrier_us(torch, build, syncs=1000):
+    """Time of one grid barrier in the sweep's grid (its resident blocks
+    an SM, csrc/wavefront.cu WAVE_MIN_BLOCKS, times the SMs, 256 threads
+    a block): an empty cooperative kernel of ``syncs`` barriers against
+    one of none, CUDA events.  Built here with nvcc; it is a measuring
+    probe, not a kernel of any path."""
+    import ctypes
+    import re
+    with open(os.path.join(build.CSRC, "wavefront.cu")) as f:
+        per_sm = int(re.search(r"#define WAVE_MIN_BLOCKS (\d+)",
+                               f.read()).group(1))
+    blocks = per_sm * torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.BUILD_DIR, "grid_barriers.cu")
+    so = os.path.join(build.BUILD_DIR, "grid_barriers.so")
+    with open(src, "w") as f:
+        f.write(BARRIER_PROBE)
+    subprocess.run([build._nvcc()] + build.NVCC_FLAGS
+                   + ["-shared", "-o", so, src], check=True, timeout=300)
+    lib = ctypes.CDLL(so)
+    lib.grid_barriers.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
+
+    def run(n):
+        code = lib.grid_barriers(blocks, n, build.stream_ptr(
+            torch.device("cuda", 0)))
+        if code != 0:
+            raise RuntimeError(f"grid barrier probe: CUDA error {code}")
+
+    t_n = median_ms(lambda: run(syncs), torch, draws=5, calls=5)
+    t_0 = median_ms(lambda: run(0), torch, draws=5, calls=5)
+    return (t_n - t_0) * 1e3 / syncs, blocks
+
+
+def synthetic(dev, torch, np, k, device_profile, build):
+    """The stencil and the sweep on n=96-shaped operands from a numpy
+    seed (27 diagonals with hex_mesh(96)'s offsets, positive dinv, 10
+    roots + the residual), the sweep's device time per level beside the
+    time of one grid barrier of its grid, and the general smoother on
+    n=64-shaped f32 operands."""
+    rng = np.random.default_rng(96)
+    DIA = k["DIA"]
+    records = []
+    b_us, blocks = barrier_us(torch, build)
+    for nn, name, dtype in ((96, "wavefront", torch.bfloat16),
+                            (64, "smoother", torch.float32)):
+        dims = (nn + 1,) * 3
+        n = dims[0] ** 3
+        A = random_dia(DIA, torch, np, rng, stencil_offsets(dims), n,
+                       torch.float32, dev)
+        As = DIA(A.vals.to(dtype), A.offsets, n)
+        xh, bh, dh = sweep_vectors(A, torch, np, rng, dev)
+        taus = tuple(float(t) for t in rng.uniform(0.3, 0.9, 10))
+        hvec, k0 = n + 2 * A.halo, 27
+        sweep = k[name]
+        cases = [(name, 1e-4, "wavefront.cu",
+                  "pallas_wavefront.py:123" if nn == 96
+                  else "pallas_smoother.py:36",
+                  lambda: sweep(As, taus, bh, dh, xh, True),
+                  lambda: k["wavefront_plain"](As, taus, bh, dh, xh, True),
+                  (nbytes(As.vals) + 5 * hvec * 4,
+                   10 * (2 * k0 + 4) * n + (2 * k0 + 1) * n), None)]
+        if nn == 96:
+            cases.insert(0, (
+                "stencil", 1e-5, "stencil.cu", "pallas_stencil.py:61",
+                lambda: k["stencil"]("spmv", A, xh),
+                lambda: k["stencil_plain"]("spmv", A, xh),
+                (nbytes(A.vals) + 2 * hvec * 4, 2 * k0 * n), None))
+        records += run_kernels(cases, torch, device_profile)
+        records[-1]["case"] = f"synthetic n={nn}, {dtype}, 10 roots + res"
+        # 11 levels (10 roots + the residual), 10 barriers
+        per_level = records[-1]["device_ms"] * 1e3 / 11
+        log("levels", kernel=name, levels=11,
+            us_per_level=f"{per_level:.3f}", barrier_us=f"{b_us:.3f}",
+            grid_blocks=blocks,
+            barrier_share=f"{10 * b_us / (11 * per_level):.4f}")
+        del A, As, xh, bh, dh
+        leave_card(torch)
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96,
@@ -346,7 +536,21 @@ def main() -> int:
     ap.add_argument("--general-n", type=int, default=64,
                     help="general-path mesh size (development only; "
                          "default 64)")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="development only: a comma list of "
+                         f"{', '.join(PATHS)} (default all)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="development only: stop each path after its "
+                         "kernel phase (no V-cycle, no PCG)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="development only: no host setup; time the "
+                         "stencil and the sweep on seeded n=96-shaped "
+                         "operands")
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        ap.error(f"--paths must be among {PATHS}")
+    full = not (args.kernels_only or args.synthetic)
 
     import numpy as np
     import torch
@@ -368,12 +572,13 @@ def main() -> int:
     from saamge_tpu_torch.ops.midmv import midmv, midmv_plain
     from saamge_tpu_torch.ops.midsmooth import mid_chain, mid_chain_plain
     from saamge_tpu_torch.ops.smoother import smoother_h, smoother_plain
+    from saamge_tpu_torch.ops.sparse import DIA
     from saamge_tpu_torch.ops.stencil import stencil_h, stencil_plain_h
     from saamge_tpu_torch.ops.wavefront import (wavefront_plain,
                                                 wavefront_smooth)
-    from saamge_tpu_torch.ops.window import (box_index, window_P,
-                                             window_P_plain, window_R,
-                                             window_R_plain)
+    from saamge_tpu_torch.ops.window import (box_index, slot_ranges,
+                                             window_P, window_P_plain,
+                                             window_R, window_R_plain)
     wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
                 "window_R": window_R, "window_P": window_P,
                 "mid_chain": mid_chain, "mfree": mfree_h, "midmv": midmv,
@@ -381,6 +586,11 @@ def main() -> int:
                 "contract_P": contract_P}
     structured_only = ("wavefront", "window_R", "window_P", "mid_chain",
                        "mfree", "midmv", "contract_R", "contract_P")
+    kern = dict(wrappers, midmv_plain=midmv_plain,
+                window_R_plain=window_R_plain,
+                window_P_plain=window_P_plain, slot_ranges=slot_ranges,
+                wavefront_plain=wavefront_plain, DIA=DIA,
+                stencil_plain=stencil_plain_h)
 
     def s_pcg(h, b, tol):
         return struct_pcg_solve(h, b, rel_tol=tol)
@@ -405,40 +615,17 @@ def main() -> int:
         flags=" ".join(_build.NVCC_FLAGS))
     # (entry, registers, static shared bytes, spill stores, spill loads)
     ptxas = {k: _build.ptxas_resources(src, k) for src, k in
-             (("midmv.cu", "midmv_kernel"), ("window.cu", "window_R_kernel"))}
+             (("midmv.cu", "midmv_kernel"), ("window.cu", "window_R_kernel"),
+              ("window.cu", "window_P_kernel"),
+              ("wavefront.cu", "wavefront_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
-    ragged_checks(torch.device("cuda", 0), torch, np, midmv, midmv_plain,
-                  window_R, window_R_plain)
+    ragged_checks(dev, torch, np, kern)
 
-    # 3. setup ----------------------------------------------------------
-    t0 = time.perf_counter()
-    supers = (2, 2, 2) if args.n < 32 else None
-    ml, b_np, geo, supers, fac = flagship_problem(
-        n=args.n, brick=args.brick, supers=supers, mfree=True)
-    setup_s = time.perf_counter() - t0
-    dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
-    A_host = ml.levels[0].A
-    t0 = time.perf_counter()
-    h_cpu = compile_structured(ml, geo, supers, device="cpu")
-    hc_cpu = compile_structured(ml, geo, supers, mfree=fac, hbm_frugal=True,
-                                ainv_dtype=torch.bfloat16, device="cpu")
-    hk_cpu = compile_structured(ml, geo, supers, rp_dtype=torch.float32,
-                                use_pallas_contract=True, device="cpu")
-    compile_s = time.perf_counter() - t0
-    # the mid operator in the slot-major padded layout: the library
-    # yardstick of the packed matvec is one sparse product with it
-    Ac = ml.levels[0].tg_data.Ac.tocoo()
-    fid = h_cpu.flat_id.numpy()
-    mid_coo = (fid[Ac.row], fid[Ac.col], Ac.data)
-    ndof = h_cpu.n
-    del ml, Ac
-    log("setup", n=args.n, ndof=ndof, coarse_dims=dims, bs=h_cpu.bs,
-        supers=supers, setup_s=f"{setup_s:.1f}",
-        compile_s=f"{compile_s:.1f}",
-        roots=(len(h_cpu.taus0), len(h_cpu.taus1)))
-    if args.n == 96 and dims != FLAGSHIP_DIMS:
-        raise RuntimeError(f"coarse dims {dims} != {FLAGSHIP_DIMS}")
+    if args.synthetic:
+        records = synthetic(dev, torch, np, kern, device_profile, _build)
+        return finish(records, {}, smi, torch)
+
     rng = np.random.default_rng(0)
 
     def vec(m):
@@ -451,14 +638,47 @@ def main() -> int:
                           torch.as_tensor(vals, dtype=torch.float32).to(dev),
                           shape, torch)
 
-    A_coo = A_host.tocoo()
-    A0_csr = card_csr(A_coo.row, A_coo.col, A_coo.data, (ndof, ndof))
-    A1_csr = card_csr(*mid_coo, (h_cpu.n_flat,) * 2)
-    del A_coo, mid_coo
-    geo_args = (geo.bricks, geo.brick_elems)
-    box, NB = geo.box, geo.num_bricks
+    records, results = [], {}
     k0 = 27
-    hvec = ndof + 2 * h_cpu.A0.halo          # haloed vector length
+
+    # 3. setup ----------------------------------------------------------
+    if {"flagship", "capacity", "contract"} & set(paths):
+        t0 = time.perf_counter()
+        supers = (2, 2, 2) if args.n < 32 else None
+        ml, b_np, geo, supers, fac = flagship_problem(
+            n=args.n, brick=args.brick, supers=supers, mfree=True)
+        setup_s = time.perf_counter() - t0
+        dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+        A_host = ml.levels[0].A
+        t0 = time.perf_counter()
+        # the flagship's CPU copy always: its layout, kernel inputs and
+        # library yardsticks serve every structured path
+        h_cpu = compile_structured(ml, geo, supers, device="cpu")
+        hc_cpu = compile_structured(
+            ml, geo, supers, mfree=fac, hbm_frugal=True,
+            ainv_dtype=torch.bfloat16, device="cpu") \
+            if "capacity" in paths else None
+        hk_cpu = compile_structured(
+            ml, geo, supers, rp_dtype=torch.float32,
+            use_pallas_contract=True, device="cpu") \
+            if "contract" in paths else None
+        compile_s = time.perf_counter() - t0
+        # the mid operator in the slot-major padded layout: the library
+        # yardstick of the packed matvec is one sparse product with it
+        Ac = ml.levels[0].tg_data.Ac.tocoo()
+        fid = h_cpu.flat_id.numpy()
+        mid_coo = (fid[Ac.row], fid[Ac.col], Ac.data)
+        ndof = h_cpu.n
+        del ml, Ac
+        log("setup", n=args.n, ndof=ndof, coarse_dims=dims, bs=h_cpu.bs,
+            supers=supers, setup_s=f"{setup_s:.1f}",
+            compile_s=f"{compile_s:.1f}",
+            roots=(len(h_cpu.taus0), len(h_cpu.taus1)))
+        if args.n == 96 and dims != FLAGSHIP_DIMS:
+            raise RuntimeError(f"coarse dims {dims} != {FLAGSHIP_DIMS}")
+        geo_args = (geo.bricks, geo.brick_elems)
+        box, NB = geo.box, geo.num_bricks
+        hvec = ndof + 2 * h_cpu.A0.halo          # haloed vector length
 
     def tent_csr(Rst):
         """The tent restriction as a (bs*NB, n) CSR matrix and its
@@ -476,214 +696,262 @@ def main() -> int:
                 sparse_csr(cols, rows, vals, (ndof, bs * NB), torch))
 
     # 4. flagship -------------------------------------------------------
-    leave_card(torch)
-    h = copy.deepcopy(h_cpu).to(dev)
-    A0, A0s = h.A0, h.A0s
-    xh, bh = A0.pad(vec(ndof)), A0.pad(vec(ndof))
-    r_f, xc = vec(ndof), vec(h.n_flat)
-    b1, x1 = vec(h.n_flat), vec(h.n_flat)
-    mid_args = (h.A1_blocks, h.doffs, h.rects, geo.bricks, h.taus1)
-    root_kw = {"bh": bh, "dinvh": h.dinv0h, "inv_tau": h.taus0[0]}
-    Rc, Pc = tent_csr(h.Rst)
-    log("library", tent_csr_nnz=Rc.values().numel(),
-        rst_values=h.Rst.numel(), A1_csr_nnz=A1_csr.values().numel(),
-        A1_packed_values=hc_cpu.A1_packed.numel())
-    rect = sum(r1 * r2 * NB for r1, r2 in h.rects)
-    r0, r1n = len(h.taus0), len(h.taus1)
-    tent_work = (nbytes(h.Rst) + ndof * 4 + h.n_flat * 4, 2 * h.Rst.numel())
-    records = run_kernels([
-        ("stencil", 1e-5, "stencil.cu", "pallas_stencil.py:61",
-         lambda: stencil_h("spmv", A0, xh),
-         lambda: stencil_plain_h("spmv", A0, xh),
-         (nbytes(A0.vals) + 2 * hvec * 4, 2 * k0 * ndof),
-         lambda: A0_csr @ r_f[:, None]),
-        ("wavefront", 1e-4, "wavefront.cu", "pallas_wavefront.py:123",
-         lambda: wavefront_smooth(A0s, h.taus0, bh, h.dinv0h, xh, True),
-         lambda: wavefront_plain(A0s, h.taus0, bh, h.dinv0h, xh, True),
-         (nbytes(A0s.vals) + 5 * hvec * 4,
-          r0 * (2 * k0 + 4) * ndof + (2 * k0 + 1) * ndof), None),
-        ("window_R", 1e-5, "window.cu", "pallas_window.py:144",
-         lambda: window_R(h.Rst, r_f, *geo_args),
-         lambda: window_R_plain(h.Rst, r_f, *geo_args), tent_work,
-         lambda: Rc @ r_f[:, None]),
-        ("window_P", 1e-5, "window.cu", "pallas_window.py:193",
-         lambda: window_P(h.Rst, xc, *geo_args),
-         lambda: window_P_plain(h.Rst, xc, *geo_args), tent_work,
-         lambda: Pc @ xc[:, None]),
-        ("mid_chain", 1e-4, "midsmooth.cu", "pallas_midsmooth.py:136",
-         lambda: mid_chain(*mid_args[:4], h.taus1, b1, h.dinv1, x1, True),
-         lambda: mid_chain_plain(h.A1_blocks, h.doffs, geo.bricks,
-                                 h.taus1, b1, h.dinv1, x1, True),
-         (rect * h.A1_blocks.element_size() + 5 * h.n_flat * 4,
-          (r1n + 1) * 2 * rect + r1n * 4 * h.n_flat), None),
-    ], torch, device_profile)
-    # the stencil kernel's residual and root modes on the bf16 twin (the
-    # sweep kernel does their work on the main path); the root pass is
-    # timed beside the matrix-free root of phase 5
-    check_modes("stencil_bf16",
-                lambda mode, **kw: stencil_h(mode, A0s, xh, **kw),
-                lambda mode, **kw: stencil_plain_h(mode, A0s, xh, **kw),
-                (("residual", {"bh": bh}), ("root", root_kw)), torch)
-    mid_full = nbytes(h.A1_blocks)
-    del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc, A0_csr
-    flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers, torch, np,
-                     struct_vcycle_apply, s_pcg)
-    check_launches("flagship", flag["launches"],
-                   ("stencil", "wavefront", "window_R", "window_P",
-                    "mid_chain"),
-                   ("mfree", "midmv", "smoother", "contract_R",
-                    "contract_P"))
-    it6, it8 = flag["it"]
-    if args.n == 96 and (it6 > PCG_MAX[1e-6] or it8 > PCG_MAX[1e-8]):
-        raise RuntimeError(f"PCG iterations {it6}/{it8} above "
-                           f"{PCG_MAX[1e-6]}/{PCG_MAX[1e-8]}")
-    del h, h_cpu
-    leave_card(torch)
+    if "flagship" in paths:
+        leave_card(torch)
+        A_coo = A_host.tocoo()
+        A0_csr = card_csr(A_coo.row, A_coo.col, A_coo.data, (ndof, ndof))
+        del A_coo
+        h = copy.deepcopy(h_cpu).to(dev)
+        A0, A0s = h.A0, h.A0s
+        xh, bh = A0.pad(vec(ndof)), A0.pad(vec(ndof))
+        r_f, xc = vec(ndof), vec(h.n_flat)
+        b1, x1 = vec(h.n_flat), vec(h.n_flat)
+        mid_args = (h.A1_blocks, h.doffs, h.rects, geo.bricks, h.taus1)
+        root_kw = {"bh": bh, "dinvh": h.dinv0h, "inv_tau": h.taus0[0]}
+        Rc, Pc = tent_csr(h.Rst)
+        tent_nnz = Rc.values().numel()
+        log("library", tent_csr_nnz=tent_nnz, rst_values=h.Rst.numel(),
+            A1_csr_nnz=len(mid_coo[2]),
+            A1_packed_values=(hc_cpu.A1_packed.numel()
+                              if hc_cpu is not None else None),
+            slot_range_bytes=nbytes(h.Rst_rng),
+            slots_in_ranges=int((h.Rst_rng[1].long()
+                                 - h.Rst_rng[0].long()).sum()))
+        rect = sum(r1 * r2 * NB for r1, r2 in h.rects)
+        r0, r1n = len(h.taus0), len(h.taus1)
+        # the tent's structurally nonzero values and the two vectors: what
+        # any implementation of R or P must read (the CSR product's work)
+        tent_work = (tent_nnz * h.Rst.element_size() + ndof * 4
+                     + h.n_flat * 4, 2 * tent_nnz)
+        records += run_kernels([
+            ("stencil", 1e-5, "stencil.cu", "pallas_stencil.py:61",
+             lambda: stencil_h("spmv", A0, xh),
+             lambda: stencil_plain_h("spmv", A0, xh),
+             (nbytes(A0.vals) + 2 * hvec * 4, 2 * k0 * ndof),
+             lambda: A0_csr @ r_f[:, None]),
+            ("wavefront", 1e-4, "wavefront.cu", "pallas_wavefront.py:123",
+             lambda: wavefront_smooth(A0s, h.taus0, bh, h.dinv0h, xh, True),
+             lambda: wavefront_plain(A0s, h.taus0, bh, h.dinv0h, xh, True),
+             (nbytes(A0s.vals) + 5 * hvec * 4,
+              r0 * (2 * k0 + 4) * ndof + (2 * k0 + 1) * ndof), None),
+            ("window_R", 1e-5, "window.cu", "pallas_window.py:144",
+             lambda: window_R(h.Rst, r_f, *geo_args),
+             lambda: window_R_plain(h.Rst, r_f, *geo_args), tent_work,
+             lambda: Rc @ r_f[:, None]),
+            ("window_P", 1e-5, "window.cu", "pallas_window.py:193",
+             lambda: window_P(h.Rst, xc, *geo_args, ranges=h.Rst_rng),
+             lambda: window_P_plain(h.Rst, xc, *geo_args), tent_work,
+             lambda: Pc @ xc[:, None]),
+            ("mid_chain", 1e-4, "midsmooth.cu", "pallas_midsmooth.py:136",
+             lambda: mid_chain(*mid_args[:4], h.taus1, b1, h.dinv1, x1,
+                               True),
+             lambda: mid_chain_plain(h.A1_blocks, h.doffs, geo.bricks,
+                                     h.taus1, b1, h.dinv1, x1, True),
+             (rect * h.A1_blocks.element_size() + 5 * h.n_flat * 4,
+              (r1n + 1) * 2 * rect + r1n * 4 * h.n_flat), None),
+        ], torch, device_profile)
+        # the stencil kernel's residual and root modes on the bf16 twin
+        # (the sweep kernel does their work on the main path)
+        check_modes("stencil_bf16",
+                    lambda mode, **kw: stencil_h(mode, A0s, xh, **kw),
+                    lambda mode, **kw: stencil_plain_h(mode, A0s, xh, **kw),
+                    (("residual", {"bh": bh}), ("root", root_kw)), torch)
+        mid_full = nbytes(h.A1_blocks)
+        del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc
+        del A0_csr
+        if full:
+            flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers,
+                             torch, np, struct_vcycle_apply, s_pcg)
+            check_launches("flagship", flag["launches"],
+                           ("stencil", "wavefront", "window_R", "window_P",
+                            "mid_chain"),
+                           ("mfree", "midmv", "smoother", "contract_R",
+                            "contract_P"))
+            it6, it8 = flag["it"]
+            if args.n == 96 and (it6 > PCG_MAX[1e-6] or it8 > PCG_MAX[1e-8]):
+                raise RuntimeError(f"PCG iterations {it6}/{it8} above "
+                                   f"{PCG_MAX[1e-6]}/{PCG_MAX[1e-8]}")
+            results["flagship"] = flag
+        del h
+        leave_card(torch)
+    flag = results.get("flagship")
 
     # 5. capacity -------------------------------------------------------
-    hc = copy.deepcopy(hc_cpu).to(dev)
-    C0, C0s = hc.A0, hc.A0s
-    xh, bh = C0.pad(vec(ndof)), C0.pad(vec(ndof))
-    x1 = vec(hc.n_flat)
-    root_kw = {"bh": bh, "dinvh": hc.dinv0h, "inv_tau": hc.taus0[0]}
-    mv_args = (hc.A1_packed, hc.doffs, hc.rects, geo.bricks, hc.bs, x1)
-    # per node: 64 FMAs rebuild the 27 values, 27 (mul + FMA) taps, root
-    mfree_flops = (2 * 64 + 3 * 27 + 8) * ndof
-    records += run_kernels([
-        ("mfree", 1e-5, "mfree.cu", "pallas_mfree.py:100",
-         lambda: mfree_h("root", C0s, xh, **root_kw),
-         lambda: mfree_plain_h("root", C0s, xh, **root_kw),
-         (nbytes(C0s.c_h, C0s.m_h) + 4 * hvec * 4, mfree_flops), None),
-        ("midmv", 1e-5, "midmv.cu", "pallas_midmv.py:142",
-         lambda: midmv(*mv_args), lambda: midmv_plain(*mv_args),
-         (nbytes(hc.A1_packed) + 2 * hc.n_flat * 4,
-          2 * hc.A1_packed.numel()),
-         lambda: A1_csr @ x1[:, None]),
-    ], torch, device_profile)
-    records[-2]["case"] = "root, bf16 c/m"
-    records[-1]["case"] = f"spmv, {hc.A1_packed.dtype} packed blocks"
-    b1 = vec(hc.n_flat)
-    mode_kw = {"b": b1, "dinv": hc.dinv1, "inv_tau": hc.taus1[0]}
-    check_modes("midmv", lambda mode, **kw: midmv(*mv_args, mode, **kw),
-                lambda mode, **kw: midmv_plain(*mv_args, mode, **kw),
-                (("residual", {"b": b1}), ("root", mode_kw)), torch)
-    # spmv on the f32 PCG operator, residual on the bf16 smoother twin
-    check_modes("mfree", lambda mode, op, **kw: mfree_h(mode, op, xh, **kw),
-                lambda mode, op, **kw: mfree_plain_h(mode, op, xh, **kw),
-                (("spmv", {"op": C0}), ("residual", {"op": C0s, "bh": bh})),
-                torch)
-    mid_packed = nbytes(hc.A1_packed)
-    del C0, C0s, xh, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
-    cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers, torch,
-                    np, struct_vcycle_apply, s_pcg)
-    check_launches("capacity", cap["launches"],
-                   ("mfree", "midmv", "window_R", "window_P"),
-                   ("stencil", "wavefront", "mid_chain", "smoother",
-                    "contract_R", "contract_P"))
-    check_launches("capacity midmv", cap["modes"]["midmv"],
-                   ("root", "residual"), ())
-    for tol, a, c in zip(TOLS, flag["it"], cap["it"]):
-        if abs(a - c) > 2:
-            raise RuntimeError(f"capacity PCG {c} vs flagship {a} "
-                               f"iterations at {tol}")
-    diags = 27 * ndof * (4 + 2)
-    log("memory", flagship_buffer_bytes=flag["buffer_bytes"],
-        capacity_buffer_bytes=cap["buffer_bytes"],
-        stored_diagonal_bytes=diags, full_mid_block_bytes=mid_full,
-        packed_mid_bytes=mid_packed,
-        flagship_peak_bytes=flag["peak_bytes_pcg"],
-        capacity_peak_bytes=cap["peak_bytes_pcg"])
-    if cap["buffer_bytes"] > flag["buffer_bytes"] - diags:
-        raise RuntimeError("the capacity hierarchy is not smaller than the "
-                           "flagship by the stored f32 + bf16 diagonals")
-    del hc, hc_cpu
-    leave_card(torch)
+    if "capacity" in paths:
+        A1_csr = card_csr(*mid_coo, (hc_cpu.n_flat,) * 2)
+        hc = copy.deepcopy(hc_cpu).to(dev)
+        C0, C0s = hc.A0, hc.A0s
+        xh, bh = C0.pad(vec(ndof)), C0.pad(vec(ndof))
+        x1 = vec(hc.n_flat)
+        root_kw = {"bh": bh, "dinvh": hc.dinv0h, "inv_tau": hc.taus0[0]}
+        mv_args = (hc.A1_packed, hc.doffs, hc.rects, geo.bricks, hc.bs, x1)
+        # per node: 64 FMAs rebuild the 27 values, 27 (mul + FMA) taps,
+        # root
+        mfree_flops = (2 * 64 + 3 * 27 + 8) * ndof
+        records += run_kernels([
+            ("mfree", 1e-5, "mfree.cu", "pallas_mfree.py:100",
+             lambda: mfree_h("root", C0s, xh, **root_kw),
+             lambda: mfree_plain_h("root", C0s, xh, **root_kw),
+             (nbytes(C0s.c_h, C0s.m_h) + 4 * hvec * 4, mfree_flops), None),
+            ("midmv", 1e-5, "midmv.cu", "pallas_midmv.py:142",
+             lambda: midmv(*mv_args), lambda: midmv_plain(*mv_args),
+             (nbytes(hc.A1_packed) + 2 * hc.n_flat * 4,
+              2 * hc.A1_packed.numel()),
+             lambda: A1_csr @ x1[:, None]),
+        ], torch, device_profile)
+        records[-2]["case"] = "root, bf16 c/m"
+        records[-1]["case"] = f"spmv, {hc.A1_packed.dtype} packed blocks"
+        b1 = vec(hc.n_flat)
+        mode_kw = {"b": b1, "dinv": hc.dinv1, "inv_tau": hc.taus1[0]}
+        check_modes("midmv", lambda mode, **kw: midmv(*mv_args, mode, **kw),
+                    lambda mode, **kw: midmv_plain(*mv_args, mode, **kw),
+                    (("residual", {"b": b1}), ("root", mode_kw)), torch)
+        # spmv on the f32 PCG operator, residual on the bf16 smoother twin
+        check_modes("mfree",
+                    lambda mode, op, **kw: mfree_h(mode, op, xh, **kw),
+                    lambda mode, op, **kw: mfree_plain_h(mode, op, xh, **kw),
+                    (("spmv", {"op": C0}),
+                     ("residual", {"op": C0s, "bh": bh})), torch)
+        mid_packed = nbytes(hc.A1_packed)
+        del C0, C0s, xh, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
+        if full:
+            cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers,
+                            torch, np, struct_vcycle_apply, s_pcg)
+            check_launches("capacity", cap["launches"],
+                           ("mfree", "midmv", "window_R", "window_P"),
+                           ("stencil", "wavefront", "mid_chain", "smoother",
+                            "contract_R", "contract_P"))
+            check_launches("capacity midmv", cap["modes"]["midmv"],
+                           ("root", "residual"), ())
+            results["capacity"] = cap
+            if flag is not None:
+                for tol, a, c in zip(TOLS, flag["it"], cap["it"]):
+                    if abs(a - c) > 2:
+                        raise RuntimeError(f"capacity PCG {c} vs flagship "
+                                           f"{a} iterations at {tol}")
+                diags = 27 * ndof * (4 + 2)
+                log("memory", flagship_buffer_bytes=flag["buffer_bytes"],
+                    capacity_buffer_bytes=cap["buffer_bytes"],
+                    stored_diagonal_bytes=diags,
+                    full_mid_block_bytes=mid_full,
+                    packed_mid_bytes=mid_packed,
+                    flagship_peak_bytes=flag["peak_bytes_pcg"],
+                    capacity_peak_bytes=cap["peak_bytes_pcg"])
+                if cap["buffer_bytes"] > flag["buffer_bytes"] - diags:
+                    raise RuntimeError("the capacity hierarchy is not "
+                                       "smaller than the flagship by the "
+                                       "stored f32 + bf16 diagonals")
+        del hc, hc_cpu
+        leave_card(torch)
 
     # 6. contract -------------------------------------------------------
-    hk = copy.deepcopy(hk_cpu).to(dev)
-    boxes = extract_boxes(vec(ndof), *geo_args)
-    xck = vec(hk.n_flat).view(hk.bs, NB)
-    kwork = (nbytes(hk.Rst) + (box + hk.bs) * NB * 4, 2 * hk.Rst.numel())
-    records += run_kernels([
-        ("contract_R", 1e-5, "contract.cu", "pallas_contract.py:47",
-         lambda: contract_R(hk.Rst, boxes),
-         lambda: contract_R_plain(hk.Rst, boxes), kwork,
-         lambda: torch.einsum("cbn,bn->cn", hk.Rst, boxes)),
-        ("contract_P", 1e-5, "contract.cu", "pallas_contract.py:47",
-         lambda: contract_P(hk.Rst, xck),
-         lambda: contract_P_plain(hk.Rst, xck), kwork,
-         lambda: torch.einsum("cbn,cn->bn", hk.Rst, xck)),
-    ], torch, device_profile)
-    records[-2]["case"] = records[-1]["case"] = "f32 Rst"
-    del boxes, xck
-    con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers, torch,
-                    np, struct_vcycle_apply, s_pcg)
-    check_launches("contract", con["launches"],
-                   ("contract_R", "contract_P", "stencil", "wavefront",
-                    "mid_chain"),
-                   ("window_R", "window_P", "mfree", "midmv", "smoother"))
-    for tol, a, c in zip(TOLS, flag["it"], con["it"]):
-        if abs(a - c) > 1:
-            raise RuntimeError(f"contract PCG {c} vs flagship {a} "
-                               f"iterations at {tol}")
-    del hk, hk_cpu, A_host
-    leave_card(torch)
+    if "contract" in paths:
+        hk = copy.deepcopy(hk_cpu).to(dev)
+        boxes = extract_boxes(vec(ndof), *geo_args)
+        xck = vec(hk.n_flat).view(hk.bs, NB)
+        kwork = (nbytes(hk.Rst) + (box + hk.bs) * NB * 4,
+                 2 * hk.Rst.numel())
+        records += run_kernels([
+            ("contract_R", 1e-5, "contract.cu", "pallas_contract.py:47",
+             lambda: contract_R(hk.Rst, boxes),
+             lambda: contract_R_plain(hk.Rst, boxes), kwork,
+             lambda: torch.einsum("cbn,bn->cn", hk.Rst, boxes)),
+            ("contract_P", 1e-5, "contract.cu", "pallas_contract.py:47",
+             lambda: contract_P(hk.Rst, xck),
+             lambda: contract_P_plain(hk.Rst, xck), kwork,
+             lambda: torch.einsum("cbn,cn->bn", hk.Rst, xck)),
+        ], torch, device_profile)
+        records[-2]["case"] = records[-1]["case"] = "f32 Rst"
+        del boxes, xck
+        if full:
+            con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers,
+                            torch, np, struct_vcycle_apply, s_pcg)
+            check_launches("contract", con["launches"],
+                           ("contract_R", "contract_P", "stencil",
+                            "wavefront", "mid_chain"),
+                           ("window_R", "window_P", "mfree", "midmv",
+                            "smoother"))
+            results["contract"] = con
+            if flag is not None:
+                for tol, a, c in zip(TOLS, flag["it"], con["it"]):
+                    if abs(a - c) > 1:
+                        raise RuntimeError(f"contract PCG {c} vs flagship "
+                                           f"{a} iterations at {tol}")
+        del hk, hk_cpu
+        leave_card(torch)
+    if {"flagship", "capacity", "contract"} & set(paths):
+        del h_cpu, A_host
 
     # 7. general --------------------------------------------------------
-    t0 = time.perf_counter()
-    ml, A_gen, b_gen = general_problem(n=args.general_n)
-    gsetup_s = time.perf_counter() - t0
-    gdims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
-    t0 = time.perf_counter()
-    g_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
-    gcompile_s = time.perf_counter() - t0
-    del ml
-    def fmt(M):
-        nb = getattr(getattr(M, "base", M), "nbuckets", None)
-        return type(M).__name__ + (f"[{nb} buckets]" if nb else "")
+    if "general" in paths:
+        t0 = time.perf_counter()
+        ml, A_gen, b_gen = general_problem(n=args.general_n)
+        gsetup_s = time.perf_counter() - t0
+        gdims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+        t0 = time.perf_counter()
+        g_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
+        gcompile_s = time.perf_counter() - t0
+        del ml
 
-    formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
-    log("general", n=args.general_n, ndof=g_cpu.n, coarse_dims=gdims,
-        setup_s=f"{gsetup_s:.1f}", compile_s=f"{gcompile_s:.1f}",
-        formats=formats, roots=[len(lv.roots) for lv in g_cpu.levels])
-    if args.general_n == 64 and gdims != GENERAL_DIMS:
-        raise RuntimeError(f"general coarse dims {gdims} != {GENERAL_DIMS}")
-    g = copy.deepcopy(g_cpu).to(dev)
-    lv0 = g.levels[0]
-    G0 = lv0.A
-    if not lv0.fused or len(G0.offsets) != 27 or len(lv0.inv_taus) != 10:
-        raise RuntimeError(f"general fine level: fused={lv0.fused}, "
-                           f"{len(G0.offsets)} offsets, roots "
-                           f"{lv0.inv_taus}")
-    ghvec = G0.n + 2 * G0.halo
-    gx, gb = G0.pad(vec(G0.n)), G0.pad(vec(G0.n))
-    records += run_kernels([
-        ("smoother", 1e-4, "wavefront.cu", "pallas_smoother.py:36",
-         lambda: smoother_h(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
-         lambda: smoother_plain(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
-         (nbytes(G0.vals) + 4 * ghvec * 4,
-          len(lv0.inv_taus) * (2 * k0 + 4) * G0.n), None),
-    ], torch, device_profile)
-    records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
-    del gx, gb, G0, lv0
-    gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers, torch, np,
-                    vcycle_apply, g_pcg)
-    check_launches("general", gen["launches"], ("smoother", "stencil"),
-                   structured_only)
-    it6, it8 = gen["it"]
-    if args.general_n == 64 and (it6 > GENERAL_PCG_MAX[1e-6]
-                                 or it8 > GENERAL_PCG_MAX[1e-8]):
-        raise RuntimeError(f"general PCG iterations {it6}/{it8} above "
-                           f"{GENERAL_PCG_MAX[1e-6]}/"
-                           f"{GENERAL_PCG_MAX[1e-8]}")
-    del g, g_cpu
-    leave_card(torch)
+        def fmt(M):
+            nb = getattr(getattr(M, "base", M), "nbuckets", None)
+            return type(M).__name__ + (f"[{nb} buckets]" if nb else "")
 
-    paths = {"mfree": cap, "midmv": cap, "contract_R": con,
-             "contract_P": con, "smoother": gen}
+        formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
+        log("general", n=args.general_n, ndof=g_cpu.n, coarse_dims=gdims,
+            setup_s=f"{gsetup_s:.1f}", compile_s=f"{gcompile_s:.1f}",
+            formats=formats, roots=[len(lv.roots) for lv in g_cpu.levels])
+        if args.general_n == 64 and gdims != GENERAL_DIMS:
+            raise RuntimeError(f"general coarse dims {gdims} != "
+                               f"{GENERAL_DIMS}")
+        g = copy.deepcopy(g_cpu).to(dev)
+        lv0 = g.levels[0]
+        G0 = lv0.A
+        if not lv0.fused or len(G0.offsets) != 27 or len(lv0.inv_taus) != 10:
+            raise RuntimeError(f"general fine level: fused={lv0.fused}, "
+                               f"{len(G0.offsets)} offsets, roots "
+                               f"{lv0.inv_taus}")
+        ghvec = G0.n + 2 * G0.halo
+        gx, gb = G0.pad(vec(G0.n)), G0.pad(vec(G0.n))
+        records += run_kernels([
+            ("smoother", 1e-4, "wavefront.cu", "pallas_smoother.py:36",
+             lambda: smoother_h(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
+             lambda: smoother_plain(G0, lv0.inv_taus, gb, lv0.dinvh, gx),
+             (nbytes(G0.vals) + 4 * ghvec * 4,
+              len(lv0.inv_taus) * (2 * k0 + 4) * G0.n), None),
+        ], torch, device_profile)
+        records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
+        del gx, gb, G0, lv0
+        if full:
+            gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers,
+                            torch, np, vcycle_apply, g_pcg)
+            check_launches("general", gen["launches"], ("smoother", "stencil"),
+                           structured_only)
+            it6, it8 = gen["it"]
+            if args.general_n == 64 and (it6 > GENERAL_PCG_MAX[1e-6]
+                                         or it8 > GENERAL_PCG_MAX[1e-8]):
+                raise RuntimeError(f"general PCG iterations {it6}/{it8} "
+                                   f"above {GENERAL_PCG_MAX[1e-6]}/"
+                                   f"{GENERAL_PCG_MAX[1e-8]}")
+            results["general"] = gen
+        del g, g_cpu
+        leave_card(torch)
+
+    path_of = {"mfree": "capacity", "midmv": "capacity",
+               "contract_R": "contract", "contract_P": "contract",
+               "smoother": "general"}
+    return finish(records, {rec["name"]: results.get(
+        path_of.get(rec["name"], "flagship")) for rec in records}, smi,
+        torch)
+
+
+def finish(records, result_of, smi, torch) -> int:
+    """Each record's launches in its path's 1e-6 PCG (None where the
+    path ran no PCG), then the card line, the kernels' JSON line and the
+    result line."""
     for rec in records:
-        rec["launches"] = paths.get(rec["name"], flag)["launches"][
-            rec["name"]]
+        res = result_of.get(rec["name"])
+        rec["launches"] = res["launches"][rec["name"]] if res else None
     log("done", seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi)
     print(json.dumps({"kernels": records}))

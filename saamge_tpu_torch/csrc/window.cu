@@ -46,12 +46,19 @@
 // lies in brick g/b at local g%b, and also in brick g/b - 1 at local b
 // when g%b == 0 and g > 0.  Threads are ordered so that consecutive
 // threads take the same local z in consecutive z-bricks, which keeps
-// the Rst and xc reads coalesced.  Shared planes are summed, so the
-// overlap-add of fold_pieces disappears.
+// the table, Rst and xc reads coalesced.  Shared planes are summed, so
+// the overlap-add of fold_pieces disappears.  A node lies in exactly one
+// MIS, whose coarse dofs hold consecutive slots of its master brick, so
+// the nonzeros of Rst[:, w, p] are one slot range [lo, hi), mostly
+// empty (ops/window.slot_ranges, a (2, box, NB) uint8 table): a node
+// reads about 1.1 Rst values instead of ~1.38 bricks x bs = 28.  Terms
+// are added in the dense loop's order, skipping only slots outside the
+// range, and offsets are 32-bit (the launcher checks they fit).
 //
 // Times at n=96 (H100 80GB HBM3, 700 W; chip_smoke.py device_ms): R
 // 34.5 us per call against 45.2 us for the CSR product of the same tent
-// operator; P 80.0 us against 30.2 us.  PERF.md section 6, rows 3 and 4.
+// operator; P 18.2 us against 29.6 us (80.0 us with the dense slot
+// loop).  PERF.md section 6, rows 3 and 4.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -231,51 +238,70 @@ __global__ void __launch_bounds__(WINDOW_R_THREADS, 3)
   }
 }
 
+// The (brick, local) pairs along one axis whose closed boxes hold node
+// coordinate g: (g / b, g % b) when g < B b, then (g / b - 1, b) when g
+// is a brick corner other than 0 -- in that order, n of them.
+struct Axis {
+  int b0, l0, b1, l1, n;
+};
+__device__ __forceinline__ Axis axis_pairs(int g, int b, int B) {
+  Axis a{0, 0, 0, 0, 0};
+  const int q = g / b, r = g - q * b;
+  if (g < B * b) {
+    a.b0 = q;
+    a.l0 = r;
+    a.n = 1;
+  }
+  if (r == 0 && g > 0) {
+    if (a.n) {
+      a.b1 = q - 1;
+      a.l1 = b;
+    } else {
+      a.b0 = q - 1;
+      a.l0 = b;
+    }
+    ++a.n;
+  }
+  return a;
+}
+
+// rng: the (2, box, NB) slot ranges [lo, hi) of ops/window.slot_ranges;
+// the launcher checks that every Rst offset fits 32 bits.
 template <typename V>
 __global__ void __launch_bounds__(SAAMGE_THREADS)
-    window_P_kernel(const V* __restrict__ Rst, WinGeom g,
+    window_P_kernel(const V* __restrict__ Rst,
+                    const uint8_t* __restrict__ rng, WinGeom g,
                     const float* __restrict__ xc, float* __restrict__ y) {
   const int NB = g.BX * g.BY * g.BZ;
-  const long NYn = (long)g.BY * g.by + 1, NZn = (long)g.BZ * g.bz + 1;
-  long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ((long)g.BX * g.bx + 1) * NYn * NZn) return;
-  const int j = (int)(t % NZn);
-  const long xy = t / NZn;
-  const int gy = (int)(xy % NYn), gx = (int)(xy / NYn);
+  const int NYn = g.BY * g.by + 1, NZn = g.BZ * g.bz + 1;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (g.BX * g.bx + 1) * NYn * NZn) return;
+  const int j = t % NZn;
+  const int xy = t / NZn;
+  const int gy = xy % NYn, gx = xy / NYn;
   // j enumerates z as (local z, brick z) with brick z fastest; the last
   // plane gz = BZ*bz comes last
   const int zlast = g.BZ * g.bz;
   const int gz = j < zlast ? (j % g.BZ) * g.bz + j / g.BZ : zlast;
-  // per axis: up to two (brick, local) pairs whose closed box holds g
-  int cb[3][2], cl[3][2], nc[3];
-  const int gc[3] = {gx, gy, gz}, bb[3] = {g.bx, g.by, g.bz},
-            BB[3] = {g.BX, g.BY, g.BZ};
-  for (int a = 0; a < 3; ++a) {
-    nc[a] = 0;
-    if (gc[a] < BB[a] * bb[a]) {
-      cb[a][nc[a]] = gc[a] / bb[a];
-      cl[a][nc[a]] = gc[a] % bb[a];
-      ++nc[a];
-    }
-    if (gc[a] % bb[a] == 0 && gc[a] > 0) {
-      cb[a][nc[a]] = gc[a] / bb[a] - 1;
-      cl[a][nc[a]] = bb[a];
-      ++nc[a];
-    }
-  }
-  const long box = (long)(g.bx + 1) * (g.by + 1) * (g.bz + 1);
+  const Axis X = axis_pairs(gx, g.bx, g.BX), Y = axis_pairs(gy, g.by, g.BY),
+             Z = axis_pairs(gz, g.bz, g.BZ);
+  const int slot = (g.bx + 1) * (g.by + 1) * (g.bz + 1) * NB;  // box * NB
   float acc = 0.f;
-  for (int ia = 0; ia < nc[0]; ++ia)
-    for (int ib = 0; ib < nc[1]; ++ib)
-      for (int ic = 0; ic < nc[2]; ++ic) {
-        const int p = (cb[0][ia] * g.BY + cb[1][ib]) * g.BZ + cb[2][ic];
-        const long w =
-            ((long)cl[0][ia] * (g.by + 1) + cl[1][ib]) * (g.bz + 1) +
-            cl[2][ic];
-        for (int s = 0; s < g.bs; ++s)
-          acc += ld(Rst, ((long)s * box + w) * NB + p) * xc[(long)s * NB + p];
+  for (int ia = 0; ia < X.n; ++ia)
+    for (int ib = 0; ib < Y.n; ++ib)
+      for (int ic = 0; ic < Z.n; ++ic) {
+        const int p = ((ia ? X.b1 : X.b0) * g.BY + (ib ? Y.b1 : Y.b0)) * g.BZ +
+                      (ic ? Z.b1 : Z.b0);
+        const int c = (((ia ? X.l1 : X.l0) * (g.by + 1) + (ib ? Y.l1 : Y.l0)) *
+                           (g.bz + 1) +
+                       (ic ? Z.l1 : Z.l0)) *
+                          NB +
+                      p;
+        const int hi = rng[slot + c];
+        for (int s = rng[c]; s < hi; ++s)
+          acc += ld(Rst, s * slot + c) * xc[s * NB + p];
       }
-  y[(xy * NZn) + gz] = acc;
+  y[xy * NZn + gz] = acc;
 }
 
 static WinGeom make_geom(const int* geom) {
@@ -349,18 +375,24 @@ extern "C" int saamge_window_R(int rst_bf16, const void* Rst,
   return (int)e;
 }
 
+// rng: (2, box, NB) uint8 slot ranges (ops/window.slot_ranges).
 extern "C" int saamge_window_P(int rst_bf16, const void* Rst,
-                               const int* geom, const float* xc, float* y,
-                               void* stream) {
+                               const uint8_t* rng, const int* geom,
+                               const float* xc, float* y, void* stream) {
   WinGeom g = make_geom(geom);
   long work = ((long)g.BX * g.bx + 1) * ((long)g.BY * g.by + 1) *
               ((long)g.BZ * g.bz + 1);
+  const long box = (long)(g.bx + 1) * (g.by + 1) * (g.bz + 1);
+  // the kernel's 32-bit offsets: Rst, the table and the nodes
+  if (g.bs > 255 || (long)g.bs * box * g.BX * g.BY * g.BZ > 0x7fffffffL ||
+      work > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (rst_bf16)
     window_P_kernel<<<blocks_for(work), SAAMGE_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)Rst, g, xc, y);
+        (const __nv_bfloat16*)Rst, rng, g, xc, y);
   else
     window_P_kernel<<<blocks_for(work), SAAMGE_THREADS, 0, s>>>(
-        (const float*)Rst, g, xc, y);
+        (const float*)Rst, rng, g, xc, y);
   return (int)cudaGetLastError();
 }

@@ -72,7 +72,7 @@ def _declare(lib) -> None:
     lib.saamge_wavefront.argtypes = [P, I, P, I, I, I, P, I, I, P, P, P,
                                      P, P, P, P]
     lib.saamge_window_R.argtypes = [I, P, P, P, P, P, P]
-    lib.saamge_window_P.argtypes = [I, P, P, P, P, P]
+    lib.saamge_window_P.argtypes = [I, P, P, P, P, P, P]
     lib.saamge_mid_chain.argtypes = [P, I, P, I, P, I, I, P, P, P, P, P,
                                      P, P]
     lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, F, P,

@@ -23,16 +23,13 @@ L2 the re-reads are served from it)."""
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.sparse import DIA
-from saamge_tpu_torch.ops.stencil import _check_operands
-from saamge_tpu_torch.ops.wavefront import wavefront_plain
+from saamge_tpu_torch.ops.wavefront import launch_sweep, wavefront_plain
 
 
 def smoother_plain(A: DIA, inv_taus, bh, dinvh, xh,
@@ -50,29 +47,14 @@ def smoother_h(A: DIA, inv_taus, bh, dinvh, xh,
     if not is_cuda(A.vals, xh, bh, dinvh):
         return smoother_plain(A, inv_taus, bh, dinvh, xh, emit_residual)
     check(A.vals, "vals", torch.float32, (len(A.offsets), A.n))
-    _check_operands(A, {"x": xh, "b": bh, "dinv": dinvh})
-    lib = _build.load()
-    offs = _build.int_array(A.offsets)
-    tmp = torch.empty_like(xh)
     res = None
     chunks = [inv_taus[i:i + _build.MAX_ROOTS]
               for i in range(0, len(inv_taus), _build.MAX_ROOTS)]
     for j, chunk in enumerate(chunks):
         last = j == len(chunks) - 1
-        out = torch.empty_like(xh)
-        res = torch.empty_like(xh) if emit_residual and last else None
-        taus = _build.float_array(chunk)
-        with torch.cuda.device(xh.device):
-            code = lib.saamge_wavefront(
-                A.vals.data_ptr(), 0, ctypes.addressof(offs),
-                len(A.offsets), A.n, A.halo, ctypes.addressof(taus),
-                len(chunk), int(res is not None), bh.data_ptr(),
-                dinvh.data_ptr(), xh.data_ptr(), out.data_ptr(),
-                tmp.data_ptr(), res.data_ptr() if res is not None else None,
-                _build.stream_ptr(xh.device))
-        _build.check_launch(lib, code, "smoother")
+        xh, res = launch_sweep(A, chunk, bh, dinvh, xh,
+                               emit_residual and last, "smoother")
         smoother_h.launches += 1
-        xh = out
     return (xh, res) if emit_residual else xh
 
 

@@ -14,8 +14,9 @@ window kernels, whose selection matmuls truncate to bf16.
 
 Window R's launch plan is ``window_R_plan``: a block stages the node
 slab of one z-line of bricks in shared memory and sums four slots of
-them (csrc/window.cu).  The ctypes geometry and plan are built once
-per (bricks, brick_elems, bs)."""
+them (csrc/window.cu).  Window P reads, for each brick and box node,
+only the slots of ``slot_ranges``: the tent's nonzeros.  The ctypes
+geometry and plan are built once per (bricks, brick_elems, bs)."""
 
 from __future__ import annotations
 
@@ -160,12 +161,40 @@ def window_R(Rst, r, bricks, brick_elems) -> torch.Tensor:
     return yc
 
 
-def window_P(Rst, xc, bricks, brick_elems) -> torch.Tensor:
-    """(bs * NB,) coarse values -> fine (n,) vector on the node grid."""
+def slot_ranges(Rst) -> torch.Tensor:
+    """(2, box, NB) uint8 table of the nonzero slots of each tent column:
+    ``[0, w, p]`` is the first slot s with Rst[s, w, p] != 0 and ``[1, w,
+    p]`` one past the last, both 0 where the column is all zero.  The
+    coarse dofs of one MIS hold consecutive slots of its master brick and
+    a node lies in one MIS, so for the tent of the setup each range holds
+    one MIS's slots; for any Rst it covers every nonzero (a dense one
+    gives [0, bs) everywhere)."""
+    bs = Rst.shape[0]
+    if bs > 255:
+        raise ValueError(f"{bs} slots per brick: the uint8 slot table "
+                         "holds at most 255")
+    nz = (Rst != 0).to(torch.uint8)
+    lo = nz.argmax(0)                           # the first maximum
+    hi = bs - nz.flip(0).argmax(0)
+    empty = nz.amax(0) == 0
+    return torch.stack([lo.masked_fill(empty, 0),
+                        hi.masked_fill(empty, 0)]).to(torch.uint8)
+
+
+def window_P(Rst, xc, bricks, brick_elems, ranges=None) -> torch.Tensor:
+    """(bs * NB,) coarse values -> fine (n,) vector on the node grid.
+    On the card ``ranges`` (``slot_ranges(Rst)``) is required: the kernel
+    reads only the slots inside them; the plain version ignores it."""
     if not is_cuda(Rst, xc):
         return window_P_plain(Rst, xc, bricks, brick_elems)
     nodes, NB = _check_Rst(Rst, bricks, brick_elems)
     check(xc, "xc", torch.float32, (Rst.shape[0] * NB,))
+    if ranges is None:
+        raise ValueError("window_P on the card needs the slot ranges of "
+                         "Rst (slot_ranges)")
+    check(ranges, "ranges", torch.uint8, (2,) + tuple(Rst.shape[1:]))
+    if ranges.device != xc.device:
+        raise ValueError(f"ranges on {ranges.device}, xc on {xc.device}")
     geom = _geom(bricks, brick_elems, Rst.shape[0])
     lib = _build.load()
     y = torch.empty(nodes[0] * nodes[1] * nodes[2], dtype=torch.float32,
@@ -173,8 +202,8 @@ def window_P(Rst, xc, bricks, brick_elems) -> torch.Tensor:
     with torch.cuda.device(xc.device):
         code = lib.saamge_window_P(
             int(Rst.dtype == torch.bfloat16), Rst.data_ptr(),
-            ctypes.addressof(geom), xc.data_ptr(), y.data_ptr(),
-            _build.stream_ptr(xc.device))
+            ranges.data_ptr(), ctypes.addressof(geom), xc.data_ptr(),
+            y.data_ptr(), _build.stream_ptr(xc.device))
     _build.check_launch(lib, code, "window_P")
     window_P.launches += 1
     return y

@@ -51,7 +51,7 @@ from saamge_tpu_torch.ops.smoother import inv_taus_f32
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.ops.wavefront import wavefront_smooth
-from saamge_tpu_torch.ops.window import window_P, window_R
+from saamge_tpu_torch.ops.window import slot_ranges, window_P, window_R
 from saamge_tpu_torch.solve.device_pcg import pcg
 
 
@@ -234,9 +234,11 @@ class StructuredHierarchy(torch.nn.Module):
     the resident chain, or the packed rectangles ``A1_packed``
     (ops/midmv.py), run as one root pass per root; the other is None.  Other
     buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
-    blocks; dinv1 (bs*NB,) mid scaling (0 on padding slots); Rst1 (bs2,
-    win, NB2) superbrick tent blocks; flat_id / flat_id2 real-dof ids in
-    the padded layouts; Ainv the coarsest inverse (f32 or bf16).  With
+    blocks and, for the window kernels, Rst_rng (2, box, NB) their
+    nonzero slot ranges; dinv1 (bs*NB,) mid scaling (0 on padding
+    slots); Rst1 (bs2, win, NB2) superbrick tent blocks; flat_id /
+    flat_id2 real-dof ids in the padded layouts; Ainv the coarsest
+    inverse (f32 or bf16).  With
     ``contract`` the tent R/P run as box contractions (ops/contract.py)
     instead of the window kernels."""
 
@@ -273,6 +275,9 @@ class StructuredHierarchy(torch.nn.Module):
         self.register_buffer("dinv0h", torch.nn.functional.pad(
             dinv0.to(torch.float32), (A0.halo, A0.halo)))
         self.register_buffer("Rst", Rst)
+        # window P's table of the nonzero slots (ops/window.slot_ranges)
+        self.register_buffer("Rst_rng",
+                             None if self.contract else slot_ranges(Rst))
         self.register_buffer("A1_blocks", A1_blocks)
         self.register_buffer("A1_packed", A1_packed)
         self.register_buffer("dinv1", dinv1.to(torch.float32))
@@ -323,7 +328,7 @@ class StructuredHierarchy(torch.nn.Module):
         if self.contract:
             C = contract_P(self.Rst, xc.view(self.bs, -1))
             return fold_boxes(C, *geo)
-        return window_P(self.Rst, xc, *geo)
+        return window_P(self.Rst, xc, *geo, ranges=self.Rst_rng)
 
     # -- coarsest level (plain torch, as the JAX package leaves it to XLA)
     def _super_dims(self):

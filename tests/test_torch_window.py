@@ -3,7 +3,7 @@ against the JAX package on the flagship n=16 setup: the XLA
 apply_R / apply_P of a bf16-Rst hierarchy (same numerics: bf16 Rst,
 f32 everything else), the Pallas window kernels (interpret mode; they
 truncate window values to bf16), and the host tent CSR; window R's
-launch plan and memoised geometry."""
+launch plan and memoised geometry; window P's slot ranges."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,8 @@ from saamge_tpu.solve import structured as JS
 from saamge_tpu_torch import compile_structured, flagship_problem
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops import window as W
-from saamge_tpu_torch.ops.window import (box_index, window_P, window_R,
+from saamge_tpu_torch.ops.window import (box_index, slot_ranges, window_P,
+                                         window_P_plain, window_R,
                                          window_R_plan)
 
 torch.set_num_threads(1)
@@ -145,3 +146,72 @@ def test_window_geometry_is_memoised():
     assert list(geom) == [5, 3, 7, 4, 4, 4, 13]
     assert list(plan) == list(window_R_plan(*key).ints())
     assert list(W._R_plan.__wrapped__(*key)) == list(plan)
+
+
+def test_slot_ranges_cover_every_tent_nonzero(setup):
+    """On the n=16 flagship tent every nonzero of Rst[:, w, p] lies in
+    [lo, hi), and a node's nonzeros sit in one (brick, box node) pair
+    (its MIS's master brick)."""
+    _, h, _, _, _, _ = setup
+    Rst = h.Rst
+    rng = slot_ranges(Rst)
+    assert rng.dtype == torch.uint8 and rng.shape == (2,) + Rst.shape[1:]
+    assert torch.equal(rng, h.Rst_rng)
+    lo, hi = rng.long()
+    s = torch.arange(Rst.shape[0])[:, None, None]
+    inside = (s >= lo) & (s < hi)
+    nz = Rst != 0
+    assert not torch.any(nz & ~inside)
+    # each range is tight: its ends are nonzeros
+    used = hi > lo
+    assert torch.all(nz.gather(0, lo[None]).squeeze(0)[used])
+    assert torch.all(nz.gather(0, (hi - 1).clamp(min=0)[None])
+                     .squeeze(0)[used])
+    assert torch.all(lo[~used] == 0) and torch.all(hi[~used] == 0)
+    idx = box_index(h.geo.bricks, h.geo.brick_elems, "cpu")
+    pairs = torch.zeros(h.n, dtype=torch.long).index_add_(
+        0, idx.reshape(-1), used.reshape(-1).long())
+    assert int(pairs.max()) == 1
+    # few slots per node: the work the kernel does
+    assert float((hi - lo).sum()) / h.n < 2.0
+
+
+def test_slot_ranges_of_a_dense_Rst_are_all_slots():
+    rst = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (13, 27, 6)).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        rng = slot_ranges(rst.to(dt))
+        assert torch.all(rng[0] == 0) and torch.all(rng[1] == 13)
+    rst[:, 4, 2] = 0
+    rst[:3, 5, 1] = 0
+    rst[9:, 5, 1] = 0
+    rng = slot_ranges(rst)
+    assert (int(rng[0, 4, 2]), int(rng[1, 4, 2])) == (0, 0)
+    assert (int(rng[0, 5, 1]), int(rng[1, 5, 1])) == (3, 9)
+    with pytest.raises(ValueError, match="255"):
+        slot_ranges(torch.ones(256, 1, 1))
+
+
+@pytest.mark.parametrize("rp", ["bf16", "f32"])
+def test_window_P_in_range_sums_equal_plain(setup, rp):
+    """A torch emulation of the kernel, which sums only the slots inside
+    each (brick, box node) range, equals window_P_plain."""
+    ml, h, _, _, _, xc = setup
+    if rp == "f32":
+        h = compile_structured(ml, h.geo, h.supers, rp_dtype=torch.float32,
+                               device="cpu")
+    bricks, be = h.geo.bricks, h.geo.brick_elems
+    Rst = h.Rst.to(torch.float32)
+    lo, hi = h.Rst_rng.long()
+    s = torch.arange(Rst.shape[0])[:, None, None]
+    keep = (s >= lo) & (s < hi)
+    xcv = torch.as_tensor(xc)
+    C = (torch.where(keep, Rst, 0.0) * xcv.view(h.bs, 1, -1)).sum(0)
+    idx = box_index(bricks, be, "cpu")
+    got = torch.zeros(h.n).index_add_(0, idx.reshape(-1), C.reshape(-1))
+    ref = window_P_plain(h.Rst, xcv, bricks, be)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    # the hierarchy's apply_P passes the table; on the CPU it runs plain
+    assert torch.equal(h.apply_P(xcv), ref)
+    assert torch.equal(window_P(h.Rst, xcv, bricks, be, ranges=h.Rst_rng),
+                       ref)
