@@ -8,7 +8,8 @@ Phases (one line each; any failure raises and exits non-zero):
   2. build    -- nvcc-builds the hand-written kernels (csrc/*.cu, sm_90a),
                  one nvcc per source, in parallel; prints ptxas's
                  registers, shared bytes and spills of the packed mid
-                 matvec, window R / P and sweep kernels
+                 matvec, window R / P, sweep, mid chain and matrix-free
+                 pass and chain kernels
   2b. ragged  -- those kernels against their plain versions: brick grids
                  with no side a multiple of a tile ((5,3,7), odd: the
                  scalar-load path; (6,5,4), even: the 2-wide one),
@@ -16,8 +17,13 @@ Phases (one line each; any failure raises and exits non-zero):
                  brick_elems (4,4,4) and (8,8,8), f32 and bf16, every
                  matvec mode, window P on dense and sparse slot ranges;
                  the sweep on odd grids, 1 / 2 / 10 roots, with and
-                 without the residual, 27 and 7 taps; two launches must
-                 agree bit for bit
+                 without the residual, 27 and 7 taps; the resident mid
+                 chain with tiles of 2, 8 and 14 bricks, 1 / 4 roots,
+                 +- residual; the matrix-free pass (every mode, equal bit
+                 for bit to the one-thread-a-node reference) and chain (1
+                 / 10 roots, +- residual, equal bit for bit to its single
+                 passes) on odd node grids; two launches must agree bit
+                 for bit
   3. setup    -- ONE flagship host setup (912,673 dofs at n=96) with the
                  matrix-free factors; from it the flagship hierarchy, the
                  full-capacity one (mfree + hbm_frugal + bf16 coarsest
@@ -30,12 +36,15 @@ Phases (one line each; any failure raises and exits non-zero):
                  bound; the library call's times), then
                  the slice: V-cycle vs the CPU copy, PCG at 1e-6 (launch
                  counts) and 1e-8, V-cycle time, peak device memory and
-                 buffer bytes
+                 buffer bytes; the mid chain must take the resident route
+                 (its tiles, threads and shared bytes are printed)
   5. capacity -- the same for the capacity hierarchy and its kernels
-                 (matrix-free fine operator, packed mid matvec and its
+                 (matrix-free pass and chain, packed mid matvec and its
                  residual and root modes); its PCG must launch no kernel
-                 of the stored-operator path, and the packed pass in its
-                 root and residual modes
+                 of the stored-operator path, the matrix-free chain for
+                 each smoothing chain, the single pass only as spmv (the
+                 PCG matvec), and the packed pass in its root and
+                 residual modes
   6. contract -- the same for the box-contraction hierarchy and its two
                  kernels; its PCG launches no window kernel and must take
                  within one iteration of the flagship's
@@ -52,10 +61,11 @@ Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
 ``--paths`` runs some of flagship, capacity, contract and general;
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
-no PCG); ``--synthetic`` skips every host setup and times the stencil
-and the sweep on n=96-shaped operands made from a numpy seed (with the
-sweep's time per level and the time of one grid barrier of its grid),
-and the general smoother on n=64-shaped ones."""
+no PCG); ``--synthetic`` skips every host setup and times the stencil,
+the sweep, the resident mid chain and the matrix-free pass and chain on
+n=96-shaped operands made from a numpy seed (with each chain's time per
+level and the time of one grid barrier of its grid), and the general
+smoother on n=64-shaped ones."""
 
 from __future__ import annotations
 
@@ -64,6 +74,7 @@ import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -245,6 +256,22 @@ def sweep_vectors(A, torch, np, rng, dev):
     return tuple(A.pad(v).to(dev) for v in (x, b, dinv))
 
 
+def random_mfree(MatrixFreeQ1, torch, np, rng, dims, dtype, dev):
+    """A matrix-free Q1 operator on a ``dims`` node grid from a numpy
+    seed, diagonally dominant so that chained roots with dinv in [0.5, 1]
+    stay bounded: coefficients U(0.5, 1) per element, a symmetric
+    reference matrix with diagonal 1/8 and small off-diagonal values, 1 %
+    essential nodes."""
+    nel = (dims[0] - 1) * (dims[1] - 1) * (dims[2] - 1)
+    n = dims[0] * dims[1] * dims[2]
+    em0 = rng.uniform(-0.002, 0.002, (8, 8))
+    em0 = em0 + em0.T + np.eye(8) / 8
+    ess = rng.choice(n, max(1, n // 100), replace=False)
+    op = MatrixFreeQ1.build(rng.uniform(0.5, 1.0, nel), ess, em0, dims,
+                            dtype)
+    return MatrixFreeQ1(op.c_h.to(dev), op.m_h.to(dev), op.K, op.dims)
+
+
 def ragged_checks(dev, torch, np, k):
     """The packed mid matvec (every mode), window R and P, and the sweep
     against their plain versions on ragged shapes from a numpy seed, f32
@@ -253,7 +280,14 @@ def ragged_checks(dev, torch, np, k):
     all-zero and partial slot ranges, and must equal, bit for bit, its
     own launch with the full ranges (the dense slot loop).  The sweep
     runs on odd grids, with 1, 2 and 10 roots, with and without the
-    residual, and on a 7-point operator (the runtime tap count)."""
+    residual, and on a 7-point operator (the runtime tap count).  The
+    resident mid chain runs on the same brick grids and rectangles with
+    tiles of 2, 8 and 14 bricks (ragged last tiles), 1 and 4 roots, with
+    and without the residual.  The matrix-free pass runs on odd node
+    grids of one to three tiles a plane in every mode and must equal the
+    one-thread-a-node reference bit for bit; its chain (1 and 10 roots,
+    with and without the residual) must equal the kernel's own single
+    passes, one a level, bit for bit."""
     rng = np.random.default_rng(11)
     bs = 13
     doffs = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -270,7 +304,29 @@ def ragged_checks(dev, torch, np, k):
         NB = bricks[0] * bricks[1] * bricks[2]
         x, b, dinv = vec(bs * NB), vec(bs * NB), vec(bs * NB)
         total = sum(r1 * r2 * NB for r1, r2 in rects)
+        # a contracting mid chain: small d
+        dmid = torch.as_tensor(rng.uniform(0.0, 0.02, bs * NB),
+                               dtype=torch.float32).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
+            blocks = torch.zeros(len(rects), bs, bs, NB)
+            for j, (r1, r2) in enumerate(rects):
+                blocks[j, :r1, :r2] = torch.as_tensor(
+                    rng.standard_normal((r1, r2, NB)), dtype=torch.float32)
+            blocks = blocks.to(dtype).to(dev)
+            for tile in (2, 8, 14):
+                tiles = k["pack_tiles"](blocks, rects, tile)
+                plan = k["tile_plan"](bricks, bs, rects, tile,
+                                      blocks.element_size())
+                for roots in (1, 4):
+                    for res in (False, True):
+                        a = (blocks, tiles, plan, doffs, rects, bricks,
+                             (0.9, 0.6, 1.1, 0.7)[:roots], b, dmid, x, res)
+                        cases.append((
+                            f"mid_chain {bricks} {dtype} tile {tile} "
+                            f"{roots} roots res={res}",
+                            lambda a=a: k["mid_chain"](*a),
+                            lambda a=(blocks,) + a[3:4] + a[5:]:
+                            k["mid_chain_plain"](*a), None))
             packed = vec(total).to(dtype)
             for mode in ("spmv", "residual", "root"):
                 args = (packed, doffs, rects, bricks, bs, x, mode, b, dinv,
@@ -307,8 +363,9 @@ def ragged_checks(dev, torch, np, k):
                                   lambda a=a, rg=rg:
                                   k["window_P"](*a, ranges=rg),
                                   lambda a=a: k["window_P_plain"](*a),
-                                  lambda a=a, f=full:
-                                  k["window_P"](*a, ranges=f)))
+                                  (lambda a=a, f=full:
+                                   k["window_P"](*a, ranges=f),
+                                   "its launch with the full slot ranges")))
     DIA = k["DIA"]
     for dims in ((23, 29, 31), (17, 13, 47)):
         n = dims[0] * dims[1] * dims[2]
@@ -333,25 +390,64 @@ def ragged_checks(dev, torch, np, k):
         a = (A7, taus, bh, dh, xh, True)
         cases.append((f"sweep {dims} 7 taps", lambda a=a: k["wavefront"](*a),
                       lambda a=a: k["wavefront_plain"](*a), None))
+    mfree_h = k["mfree"]
+    for dims in ((13, 17, 19), (9, 29, 31), (5, 37, 41)):
+        for dtype in (torch.float32, torch.bfloat16):
+            op = random_mfree(k["MatrixFreeQ1"], torch, np, rng, dims, dtype,
+                              dev)
+            xh, bh, dh = sweep_vectors(op, torch, np, rng, dev)
+            for mode, kw in (("spmv", {}), ("residual", {"bh": bh}),
+                             ("root", {"bh": bh, "dinvh": dh,
+                                       "inv_tau": 0.7})):
+                a = (mode, op, xh)
+                cases.append((f"mfree {dims} {dtype} {mode}",
+                              lambda a=a, kw=kw: mfree_h(*a, **kw),
+                              lambda a=a, kw=kw: k["mfree_plain"](*a, **kw),
+                              (lambda a=a, kw=kw: k["mfree_point"](*a, **kw),
+                               "the one-thread-a-node reference")))
+            taus = tuple(float(t) for t in rng.uniform(0.3, 0.9, 10))
+            for roots in (1, 10):
+                for res in (False, True):
+                    a = (op, taus[:roots], bh, dh, xh, res)
+
+                    def passes(op=op, taus=taus[:roots], res=res, xh=xh,
+                               bh=bh, dh=dh):
+                        x = xh
+                        for it in taus:
+                            x = mfree_h("root", op, x, bh, dh, it)
+                        return (x, mfree_h("residual", op, x, bh)) if res \
+                            else x
+
+                    cases.append((f"mfree_chain {dims} {dtype} {roots} "
+                                  f"roots res={res}",
+                                  lambda a=a: k["mfree_chain"](*a),
+                                  lambda a=a: k["mfree_chain_plain"](*a),
+                                  (passes, "the single passes, one a level")))
     worst = 0.0
     for what, kern, plain, same in cases:
         got = kern()
         again = kern()
         _, rel = rel_err(got, plain())
         worst = max(worst, rel)
-        tol = 1e-4 if what.startswith("sweep") else 1e-5
+        tol = 1e-4 if what.split()[0] in ("sweep", "mid_chain",
+                                          "mfree_chain") else 1e-5
         if not rel <= tol:
             raise RuntimeError(f"ragged {what}: rel err {rel:.3e} > {tol}")
         got = got if isinstance(got, tuple) else (got,)
         again = again if isinstance(again, tuple) else (again,)
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise RuntimeError(f"ragged {what}: two launches differ")
-        if same is not None and not torch.equal(got[0], same()):
-            raise RuntimeError(f"ragged {what}: the slot ranges changed the "
-                               "sum of the dense slot loop")
+        if same is not None:
+            other = same[0]()
+            other = other if isinstance(other, tuple) else (other,)
+            if not all(torch.equal(g, o) for g, o in zip(got, other)):
+                raise RuntimeError(f"ragged {what}: not bit-equal to "
+                                   f"{same[1]}")
     log("ragged", cases=len(cases), max_rel_err=f"{worst:.3e}",
-        tol="1e-5 (sweep 1e-4)", bit_reproducible=True,
-        window_P_ranges_bit_equal_dense_loop=True)
+        tol="1e-5 (sweep and chains 1e-4)", bit_reproducible=True,
+        window_P_ranges_bit_equal_dense_loop=True,
+        mfree_bit_equal_point_reference=True,
+        mfree_chain_bit_equal_single_passes=True)
 
 
 def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
@@ -416,6 +512,39 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     return out
 
 
+# f32 operations of one matrix-free pass a node, as the function does them:
+# 64 FMAs rebuild the 27 values from the 8 c values, one multiply forms
+# x * m, 27 FMAs sum the taps, 5 the mask's epilogue
+# m * acc + (1 - m) * (val13 * x), then the mode's own.
+MFREE_NODE_FLOPS = 2 * 64 + 1 + 2 * 27 + 5
+MFREE_MODE_FLOPS = {"spmv": 0, "residual": 1, "root": 4}
+
+
+def mfree_flops(nodes, roots=0, residual=False, spmv=False) -> int:
+    """f32 operations of ``roots`` root passes, then a residual and / or
+    an spmv pass, over ``nodes`` nodes."""
+    modes = ["root"] * roots + ["residual"] * residual + ["spmv"] * spmv
+    return sum(MFREE_NODE_FLOPS + MFREE_MODE_FLOPS[m] for m in modes) * nodes
+
+
+def mfree_passes(mfree_h, op, inv_taus, bh, dinvh, xh, emit_res):
+    """The chain as the kernel's own single passes, one a level."""
+    for it in inv_taus:
+        xh = mfree_h("root", op, xh, bh, dinvh, it)
+    return (xh, mfree_h("residual", op, xh, bh)) if emit_res else xh
+
+
+def bit_checks(phase, pairs, torch):
+    """Each (name, kernel, other) pair must agree bit for bit."""
+    for name, kern, other in pairs:
+        a, b = kern(), other()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"{phase} {name}: not bit-equal")
+    log(phase, bit_equal=[name for name, _, _ in pairs])
+
+
 def check_launches(path, launches, must, never):
     low = {k: launches[k] for k in must if launches[k] < 1}
     high = {k: launches[k] for k in never if launches[k] > 0}
@@ -446,19 +575,13 @@ extern "C" int grid_barriers(int blocks, int syncs, void* stream) {
 '''
 
 
-def barrier_us(torch, build, syncs=1000):
-    """Time of one grid barrier in the sweep's grid (its resident blocks
-    an SM, csrc/wavefront.cu WAVE_MIN_BLOCKS, times the SMs, 256 threads
-    a block): an empty cooperative kernel of ``syncs`` barriers against
-    one of none, CUDA events.  Built here with nvcc; it is a measuring
-    probe, not a kernel of any path."""
+def barrier_probe(torch, build, syncs=1000):
+    """A function of a block count: the time of one grid barrier in a
+    cooperative grid of that many blocks of 256 threads, from an empty
+    cooperative kernel of ``syncs`` barriers against one of none, CUDA
+    events.  Built here with nvcc; it is a measuring probe, not a kernel
+    of any path."""
     import ctypes
-    import re
-    with open(os.path.join(build.CSRC, "wavefront.cu")) as f:
-        per_sm = int(re.search(r"#define WAVE_MIN_BLOCKS (\d+)",
-                               f.read()).group(1))
-    blocks = per_sm * torch.cuda.get_device_properties(0) \
-        .multi_processor_count
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     src = os.path.join(build.BUILD_DIR, "grid_barriers.cu")
     so = os.path.join(build.BUILD_DIR, "grid_barriers.so")
@@ -470,15 +593,30 @@ def barrier_us(torch, build, syncs=1000):
     lib.grid_barriers.argtypes = [ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p]
 
-    def run(n):
-        code = lib.grid_barriers(blocks, n, build.stream_ptr(
-            torch.device("cuda", 0)))
-        if code != 0:
-            raise RuntimeError(f"grid barrier probe: CUDA error {code}")
+    def us(blocks):
+        def run(n):
+            code = lib.grid_barriers(blocks, n, build.stream_ptr(
+                torch.device("cuda", 0)))
+            if code != 0:
+                raise RuntimeError(f"grid barrier probe: CUDA error {code}")
 
-    t_n = median_ms(lambda: run(syncs), torch, draws=5, calls=5)
-    t_0 = median_ms(lambda: run(0), torch, draws=5, calls=5)
-    return (t_n - t_0) * 1e3 / syncs, blocks
+        t_n = median_ms(lambda: run(syncs), torch, draws=5, calls=5)
+        t_0 = median_ms(lambda: run(0), torch, draws=5, calls=5)
+        return (t_n - t_0) * 1e3 / syncs
+
+    return us
+
+
+def per_level(name, dev_long, levels_long, dev_short, levels_short,
+              b_us, blocks):
+    """Device time per level of a chained kernel from two launches of
+    different depth (the difference removes what a launch pays once),
+    beside the time of one grid barrier of its grid."""
+    lvl = (dev_long - dev_short) * 1e3 / (levels_long - levels_short)
+    log("levels", kernel=name, levels=f"{levels_short}->{levels_long}",
+        us_per_level=f"{lvl:.3f}",
+        us_once=f"{dev_short * 1e3 - levels_short * lvl:.3f}",
+        barrier_us=f"{b_us:.3f}", grid_blocks=blocks)
 
 
 def synthetic(dev, torch, np, k, device_profile, build):
@@ -486,11 +624,20 @@ def synthetic(dev, torch, np, k, device_profile, build):
     seed (27 diagonals with hex_mesh(96)'s offsets, positive dinv, 10
     roots + the residual), the sweep's device time per level beside the
     time of one grid barrier of its grid, and the general smoother on
-    n=64-shaped f32 operands."""
+    n=64-shaped f32 operands; the resident mid chain on n=96-shaped
+    brick blocks (12^3 bricks, bs 20, 27 offsets of 13 x 13 used slots:
+    15.8 MB of bf16 rectangles) and the matrix-free pass and chain on a
+    97^3 node grid, each with its time per level."""
     rng = np.random.default_rng(96)
     DIA = k["DIA"]
     records = []
-    b_us, blocks = barrier_us(torch, build)
+    barrier = barrier_probe(torch, build)
+    with open(os.path.join(build.CSRC, "wavefront.cu")) as f:
+        per_sm = int(re.search(r"#define WAVE_MIN_BLOCKS (\d+)",
+                               f.read()).group(1))
+    blocks = per_sm * torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    b_us = barrier(blocks)
     for nn, name, dtype in ((96, "wavefront", torch.bfloat16),
                             (64, "smoother", torch.float32)):
         dims = (nn + 1,) * 3
@@ -518,13 +665,99 @@ def synthetic(dev, torch, np, k, device_profile, build):
         records += run_kernels(cases, torch, device_profile)
         records[-1]["case"] = f"synthetic n={nn}, {dtype}, 10 roots + res"
         # 11 levels (10 roots + the residual), 10 barriers
-        per_level = records[-1]["device_ms"] * 1e3 / 11
+        lvl = records[-1]["device_ms"] * 1e3 / 11
         log("levels", kernel=name, levels=11,
-            us_per_level=f"{per_level:.3f}", barrier_us=f"{b_us:.3f}",
+            us_per_level=f"{lvl:.3f}", barrier_us=f"{b_us:.3f}",
             grid_blocks=blocks,
-            barrier_share=f"{10 * b_us / (11 * per_level):.4f}")
+            barrier_share=f"{10 * b_us / (11 * lvl):.4f}")
         del A, As, xh, bh, dh
         leave_card(torch)
+
+    # the resident mid chain
+    bricks, bs = (12, 12, 12), 20
+    NB = 12 ** 3
+    doffs = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                  for dz in (-1, 0, 1))
+    rects = ((13, 13),) * 27
+    blocks1 = torch.zeros(27, bs, bs, NB)
+    blocks1[:, :13, :13] = torch.as_tensor(
+        rng.uniform(-0.05, 0.05, (27, 13, 13, NB)), dtype=torch.float32)
+    blocks1 = blocks1.to(torch.bfloat16).to(dev)
+    plan = k["mid_tile_plan"](bricks, bs, rects, *k["card_limits"](dev), 2)
+    tiles = k["pack_tiles"](blocks1, rects, plan.tile)
+    b1, x1 = (torch.as_tensor(rng.standard_normal(bs * NB),
+                              dtype=torch.float32).to(dev) for _ in range(2))
+    d1 = torch.as_tensor(rng.uniform(0.5, 1.0, bs * NB),
+                         dtype=torch.float32).to(dev)
+    taus1 = (0.9, 0.6, 1.1, 0.7)
+    rect = sum(r1 * r2 * NB for r1, r2 in rects)
+    args = (blocks1, tiles, plan, doffs, rects, bricks)
+    log("synthetic", mid_tiles=plan.tiles, mid_tile_bricks=plan.tile,
+        mid_threads=plan.threads, mid_shared_bytes=plan.smem,
+        mid_rect_bytes=rect * 2)
+    records += run_kernels([
+        ("mid_chain", 1e-4, "midsmooth.cu", "pallas_midsmooth.py:136",
+         lambda: k["mid_chain"](*args, taus1, b1, d1, x1, True),
+         lambda: k["mid_chain_plain"](blocks1, doffs, bricks, taus1, b1, d1,
+                                      x1, True),
+         (rect * 2 + 5 * bs * NB * 4, 5 * 2 * rect + 4 * 4 * bs * NB),
+         None)], torch, device_profile)
+    records[-1]["case"] = "synthetic n=96 shapes, bf16, 4 roots + res"
+    one = device_ms(lambda: k["mid_chain"](*args, taus1[:1], b1, d1, x1),
+                    torch, device_profile)
+    per_level("mid_chain", records[-1]["device_ms"], 5, one, 1,
+              barrier(plan.tiles), plan.tiles)
+    del blocks1, tiles, args
+    leave_card(torch)
+
+    # the matrix-free pass and chain
+    dims = (97, 97, 97)
+    n = 97 ** 3
+    op32 = random_mfree(k["MatrixFreeQ1"], torch, np, rng, dims,
+                        torch.float32, dev)
+    op16 = k["MatrixFreeQ1"](op32.c_h.to(torch.bfloat16),
+                             op32.m_h.to(torch.bfloat16), op32.K, dims)
+    xh, bh, dh = sweep_vectors(op32, torch, np, rng, dev)
+    hvec = n + 2 * op32.halo
+    taus = tuple(float(t) for t in rng.uniform(0.3, 0.9, 10))
+    chain = (op16, taus, bh, dh, xh, True)
+    records += run_kernels([
+        ("mfree", 1e-5, "mfree.cu", "pallas_mfree.py:100",
+         lambda: k["mfree"]("spmv", op32, xh),
+         lambda: k["mfree_plain"]("spmv", op32, xh),
+         (nbytes(op32.c_h, op32.m_h) + 2 * hvec * 4,
+          mfree_flops(n, spmv=True)), None),
+        ("mfree_chain", 1e-4, "mfree.cu", "pallas_mfree.py:100",
+         lambda: k["mfree_chain"](*chain),
+         lambda: k["mfree_chain_plain"](*chain),
+         (nbytes(op16.c_h, op16.m_h) + 5 * hvec * 4,
+          mfree_flops(n, len(taus), residual=True)), None),
+    ], torch, device_profile)
+    records[-2]["case"] = "synthetic 97^3 nodes, spmv, f32 c/m"
+    records[-1]["case"] = "synthetic 97^3 nodes, bf16 c/m, 10 roots + res"
+    bit_checks("synthetic", [
+        (f"mfree {mode}", lambda op=op, mode=mode, kw=kw:
+         k["mfree"](mode, op, xh, **kw),
+         lambda op=op, mode=mode, kw=kw: k["mfree_point"](mode, op, xh, **kw))
+        for mode, op, kw in (("spmv", op32, {}), ("residual", op16,
+                                                  {"bh": bh}),
+                             ("root", op16, {"bh": bh, "dinvh": dh,
+                                             "inv_tau": 0.7}))]
+        + [("mfree_chain", lambda: k["mfree_chain"](*chain),
+            lambda: mfree_passes(k["mfree"], *chain))], torch)
+    point = device_ms(lambda: k["mfree_point"]("spmv", op32, xh), torch,
+                      device_profile)
+    log("synthetic", mfree_point_reference_device_ms=f"{point:.4f}")
+    one = device_ms(lambda: k["mfree_chain"](op16, taus[:1], bh, dh, xh),
+                    torch, device_profile)
+    grid = min(k["mfree_plan"](dims, torch.cuda.get_device_properties(0)
+                               .multi_processor_count).items,
+               3 * torch.cuda.get_device_properties(0)
+               .multi_processor_count)
+    per_level("mfree_chain", records[-1]["device_ms"], 11, one, 1,
+              barrier(grid), grid)
+    del op32, op16, xh, bh, dh, chain
+    leave_card(torch)
     return records
 
 
@@ -568,9 +801,15 @@ def main() -> int:
     from saamge_tpu_torch.ops.contract import (contract_P, contract_P_plain,
                                                contract_R, contract_R_plain,
                                                extract_boxes)
-    from saamge_tpu_torch.ops.mfree import mfree_h, mfree_plain_h
+    from saamge_tpu_torch.ops.mfree import (MatrixFreeQ1, mfree_chain,
+                                            mfree_chain_plain, mfree_h,
+                                            mfree_plain_h, mfree_plan,
+                                            mfree_point_h)
     from saamge_tpu_torch.ops.midmv import midmv, midmv_plain
-    from saamge_tpu_torch.ops.midsmooth import mid_chain, mid_chain_plain
+    from saamge_tpu_torch.ops.midsmooth import (card_limits, mid_chain,
+                                                mid_chain_plain,
+                                                mid_tile_plan, pack_tiles,
+                                                tile_plan)
     from saamge_tpu_torch.ops.smoother import smoother_h, smoother_plain
     from saamge_tpu_torch.ops.sparse import DIA
     from saamge_tpu_torch.ops.stencil import stencil_h, stencil_plain_h
@@ -581,16 +820,24 @@ def main() -> int:
                                              window_R, window_R_plain)
     wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
                 "window_R": window_R, "window_P": window_P,
-                "mid_chain": mid_chain, "mfree": mfree_h, "midmv": midmv,
+                "mid_chain": mid_chain, "mfree": mfree_h,
+                "mfree_chain": mfree_chain, "midmv": midmv,
                 "smoother": smoother_h, "contract_R": contract_R,
                 "contract_P": contract_P}
     structured_only = ("wavefront", "window_R", "window_P", "mid_chain",
-                       "mfree", "midmv", "contract_R", "contract_P")
+                       "mfree", "mfree_chain", "midmv", "contract_R",
+                       "contract_P")
     kern = dict(wrappers, midmv_plain=midmv_plain,
                 window_R_plain=window_R_plain,
                 window_P_plain=window_P_plain, slot_ranges=slot_ranges,
                 wavefront_plain=wavefront_plain, DIA=DIA,
-                stencil_plain=stencil_plain_h)
+                stencil_plain=stencil_plain_h, pack_tiles=pack_tiles,
+                mid_chain_plain=mid_chain_plain, mfree_plain=mfree_plain_h,
+                mfree_point=mfree_point_h,
+                mfree_chain_plain=mfree_chain_plain,
+                MatrixFreeQ1=MatrixFreeQ1, card_limits=card_limits,
+                mid_tile_plan=mid_tile_plan, tile_plan=tile_plan,
+                mfree_plan=mfree_plan)
 
     def s_pcg(h, b, tol):
         return struct_pcg_solve(h, b, rel_tol=tol)
@@ -617,7 +864,10 @@ def main() -> int:
     ptxas = {k: _build.ptxas_resources(src, k) for src, k in
              (("midmv.cu", "midmv_kernel"), ("window.cu", "window_R_kernel"),
               ("window.cu", "window_P_kernel"),
-              ("wavefront.cu", "wavefront_kernel"))}
+              ("wavefront.cu", "wavefront_kernel"),
+              ("midsmooth.cu", "mid_chain_kernel"),
+              ("mfree.cu", "mfree_pass_kernel"),
+              ("mfree.cu", "mfree_chain_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
     ragged_checks(dev, torch, np, kern)
@@ -706,7 +956,20 @@ def main() -> int:
         xh, bh = A0.pad(vec(ndof)), A0.pad(vec(ndof))
         r_f, xc = vec(ndof), vec(h.n_flat)
         b1, x1 = vec(h.n_flat), vec(h.n_flat)
-        mid_args = (h.A1_blocks, h.doffs, h.rects, geo.bricks, h.taus1)
+        # the mid chain's route: the operator resident in shared memory
+        mplan = h.mid_plan
+        log("flagship", mid_route=h.mid_route,
+            mid_tiles=mplan and mplan.tiles,
+            mid_tile_bricks=mplan and mplan.tile,
+            mid_threads=mplan and mplan.threads,
+            mid_shared_bytes=mplan and mplan.smem,
+            sms=card_limits(dev)[0])
+        if h.mid_route != "resident":
+            raise RuntimeError(f"flagship mid route {h.mid_route}: not the "
+                               "resident chain")
+        mid_args = (h.A1_blocks, h.A1_tiles, mplan, h.doffs, h.rects,
+                    geo.bricks, h.taus1)
+        A1_csr = card_csr(*mid_coo, (h.n_flat,) * 2)
         root_kw = {"bh": bh, "dinvh": h.dinv0h, "inv_tau": h.taus0[0]}
         Rc, Pc = tent_csr(h.Rst)
         tent_nnz = Rc.values().numel()
@@ -743,13 +1006,22 @@ def main() -> int:
              lambda: window_P_plain(h.Rst, xc, *geo_args), tent_work,
              lambda: Pc @ xc[:, None]),
             ("mid_chain", 1e-4, "midsmooth.cu", "pallas_midsmooth.py:136",
-             lambda: mid_chain(*mid_args[:4], h.taus1, b1, h.dinv1, x1,
-                               True),
+             lambda: mid_chain(*mid_args, b1, h.dinv1, x1, True),
              lambda: mid_chain_plain(h.A1_blocks, h.doffs, geo.bricks,
                                      h.taus1, b1, h.dinv1, x1, True),
              (rect * h.A1_blocks.element_size() + 5 * h.n_flat * 4,
               (r1n + 1) * 2 * rect + r1n * 4 * h.n_flat), None),
         ], torch, device_profile)
+        # a labelled reference, not a library call of the same function:
+        # the five passes of the chain as CSR products of A1
+        records[-1]["reference"] = {
+            "what": "5 x CSR product of A1 (f32 values)",
+            "ms": median_ms(lambda: [A1_csr @ x1[:, None] for _ in range(5)],
+                            torch, draws=5, calls=4),
+            "device_ms": device_ms(lambda: [A1_csr @ x1[:, None]
+                                            for _ in range(5)],
+                                   torch, device_profile)}
+        log("kernel", name="mid_chain", reference=records[-1]["reference"])
         # the stencil kernel's residual and root modes on the bf16 twin
         # (the sweep kernel does their work on the main path)
         check_modes("stencil_bf16",
@@ -758,15 +1030,15 @@ def main() -> int:
                     (("residual", {"bh": bh}), ("root", root_kw)), torch)
         mid_full = nbytes(h.A1_blocks)
         del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc
-        del A0_csr
+        del A0_csr, A1_csr
         if full:
             flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers,
                              torch, np, struct_vcycle_apply, s_pcg)
             check_launches("flagship", flag["launches"],
                            ("stencil", "wavefront", "window_R", "window_P",
                             "mid_chain"),
-                           ("mfree", "midmv", "smoother", "contract_R",
-                            "contract_P"))
+                           ("mfree", "mfree_chain", "midmv", "smoother",
+                            "contract_R", "contract_P"))
             it6, it8 = flag["it"]
             if args.n == 96 and (it6 > PCG_MAX[1e-6] or it8 > PCG_MAX[1e-8]):
                 raise RuntimeError(f"PCG iterations {it6}/{it8} above "
@@ -779,48 +1051,84 @@ def main() -> int:
     # 5. capacity -------------------------------------------------------
     if "capacity" in paths:
         A1_csr = card_csr(*mid_coo, (hc_cpu.n_flat,) * 2)
+        A_coo = A_host.tocoo()
+        A0_csr = card_csr(A_coo.row, A_coo.col, A_coo.data, (ndof, ndof))
+        del A_coo
         hc = copy.deepcopy(hc_cpu).to(dev)
         C0, C0s = hc.A0, hc.A0s
-        xh, bh = C0.pad(vec(ndof)), C0.pad(vec(ndof))
+        xf = vec(ndof)
+        xh, bh = C0.pad(xf), C0.pad(vec(ndof))
         x1 = vec(hc.n_flat)
         root_kw = {"bh": bh, "dinvh": hc.dinv0h, "inv_tau": hc.taus0[0]}
         mv_args = (hc.A1_packed, hc.doffs, hc.rects, geo.bricks, hc.bs, x1)
-        # per node: 64 FMAs rebuild the 27 values, 27 (mul + FMA) taps,
-        # root
-        mfree_flops = (2 * 64 + 3 * 27 + 8) * ndof
+        chain_args = (C0s, hc.taus0, bh, hc.dinv0h, xh, True)
         records += run_kernels([
             ("mfree", 1e-5, "mfree.cu", "pallas_mfree.py:100",
-             lambda: mfree_h("root", C0s, xh, **root_kw),
-             lambda: mfree_plain_h("root", C0s, xh, **root_kw),
-             (nbytes(C0s.c_h, C0s.m_h) + 4 * hvec * 4, mfree_flops), None),
+             lambda: mfree_h("spmv", C0, xh),
+             lambda: mfree_plain_h("spmv", C0, xh),
+             (nbytes(C0.c_h, C0.m_h) + 2 * hvec * 4,
+              mfree_flops(ndof, spmv=True)),
+             lambda: A0_csr @ xf[:, None]),
+            ("mfree_chain", 1e-4, "mfree.cu", "pallas_mfree.py:100",
+             lambda: mfree_chain(*chain_args),
+             lambda: mfree_chain_plain(*chain_args),
+             (nbytes(C0s.c_h, C0s.m_h) + 5 * hvec * 4,
+              mfree_flops(ndof, len(hc.taus0), residual=True)), None),
             ("midmv", 1e-5, "midmv.cu", "pallas_midmv.py:142",
              lambda: midmv(*mv_args), lambda: midmv_plain(*mv_args),
              (nbytes(hc.A1_packed) + 2 * hc.n_flat * 4,
               2 * hc.A1_packed.numel()),
              lambda: A1_csr @ x1[:, None]),
         ], torch, device_profile)
-        records[-2]["case"] = "root, bf16 c/m"
+        records[-3]["case"] = "spmv, f32 c/m (the PCG operator)"
+        # the first design, one thread a node, kept as the bit reference:
+        # the same spmv pass on the same operator and x, timed as the kernel
+        records[-3]["reference"] = {
+            "what": "mfree_point_h: the one-thread-a-node kernel, the same "
+                    "spmv pass on the same inputs",
+            "ms": median_ms(lambda: mfree_point_h("spmv", C0, xh), torch,
+                            draws=5, calls=20),
+            "device_ms": device_ms(lambda: mfree_point_h("spmv", C0, xh),
+                                   torch, device_profile)}
+        log("kernel", name="mfree", reference=records[-3]["reference"])
+        records[-2]["case"] = (f"{len(hc.taus0)} roots + residual, bf16 "
+                               "c/m (the smoother twin)")
         records[-1]["case"] = f"spmv, {hc.A1_packed.dtype} packed blocks"
+        bit_checks("capacity", [
+            (f"mfree {mode}", lambda op=op, mode=mode, kw=kw:
+             mfree_h(mode, op, xh, **kw),
+             lambda op=op, mode=mode, kw=kw:
+             mfree_point_h(mode, op, xh, **kw))
+            for mode, op, kw in (("spmv", C0, {}),
+                                 ("residual", C0s, {"bh": bh}),
+                                 ("root", C0s, root_kw))]
+            + [("mfree_chain", lambda: mfree_chain(*chain_args),
+                lambda: mfree_passes(mfree_h, *chain_args))], torch)
         b1 = vec(hc.n_flat)
         mode_kw = {"b": b1, "dinv": hc.dinv1, "inv_tau": hc.taus1[0]}
         check_modes("midmv", lambda mode, **kw: midmv(*mv_args, mode, **kw),
                     lambda mode, **kw: midmv_plain(*mv_args, mode, **kw),
                     (("residual", {"b": b1}), ("root", mode_kw)), torch)
-        # spmv on the f32 PCG operator, residual on the bf16 smoother twin
+        # residual and root on the bf16 smoother twin
         check_modes("mfree",
-                    lambda mode, op, **kw: mfree_h(mode, op, xh, **kw),
-                    lambda mode, op, **kw: mfree_plain_h(mode, op, xh, **kw),
-                    (("spmv", {"op": C0}),
-                     ("residual", {"op": C0s, "bh": bh})), torch)
+                    lambda mode, **kw: mfree_h(mode, C0s, xh, **kw),
+                    lambda mode, **kw: mfree_plain_h(mode, C0s, xh, **kw),
+                    (("residual", {"bh": bh}), ("root", root_kw)), torch)
         mid_packed = nbytes(hc.A1_packed)
-        del C0, C0s, xh, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
+        del C0, C0s, xh, xf, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
+        del A0_csr, chain_args
         if full:
             cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers,
                             torch, np, struct_vcycle_apply, s_pcg)
             check_launches("capacity", cap["launches"],
-                           ("mfree", "midmv", "window_R", "window_P"),
+                           ("mfree", "mfree_chain", "midmv", "window_R",
+                            "window_P"),
                            ("stencil", "wavefront", "mid_chain", "smoother",
                             "contract_R", "contract_P"))
+            # single passes only for the PCG matvec: each smoothing chain
+            # is one mfree_chain launch
+            check_launches("capacity mfree", cap["modes"]["mfree"],
+                           ("spmv",), ("residual", "root"))
             check_launches("capacity midmv", cap["modes"]["midmv"],
                            ("root", "residual"), ())
             results["capacity"] = cap
@@ -869,8 +1177,8 @@ def main() -> int:
             check_launches("contract", con["launches"],
                            ("contract_R", "contract_P", "stencil",
                             "wavefront", "mid_chain"),
-                           ("window_R", "window_P", "mfree", "midmv",
-                            "smoother"))
+                           ("window_R", "window_P", "mfree", "mfree_chain",
+                            "midmv", "smoother"))
             results["contract"] = con
             if flag is not None:
                 for tol, a, c in zip(TOLS, flag["it"], con["it"]):
@@ -937,7 +1245,8 @@ def main() -> int:
         del g, g_cpu
         leave_card(torch)
 
-    path_of = {"mfree": "capacity", "midmv": "capacity",
+    path_of = {"mfree": "capacity", "mfree_chain": "capacity",
+               "midmv": "capacity",
                "contract_R": "contract", "contract_P": "contract",
                "smoother": "general"}
     return finish(records, {rec["name"]: results.get(

@@ -14,7 +14,9 @@ that this module needs no JAX:
   d["dinv0h"]                    (t_rows, 128) haloed fine scaling
   d["taus0"], d["taus1"]         1/tau of each root
   d["Rst"]                       (bs, box, NB) tent blocks
-  d["A1d.blocks"]                (k1, bs, bs, NB) mid blocks
+  d["A1d.blocks"]                (k1, bs, bs, NB) mid blocks (and from
+                                 them the resident chain's tiles, as
+                                 compile_structured builds them)
   d["dinv1"], d["Rst1"], d["flat_id"], d["flat_id2"], d["Ainv"]
 
 and ``meta`` with "offsets", "n", "hr" (the TPU layout's halo rows),
@@ -48,7 +50,8 @@ from saamge_tpu_torch.ops.sparse import DIA, ELL, Banded
 from saamge_tpu_torch.solve.compiled import (CompiledHierarchy,
                                              CompiledLevel)
 from saamge_tpu_torch.solve.structured import (BrickGeometry,
-                                               StructuredHierarchy)
+                                               StructuredHierarchy,
+                                               mid_buffers)
 
 LANES = 128            # lane width of the TPU (rows, 128) layout
 
@@ -96,7 +99,8 @@ def from_jax_arrays(d: dict, meta: dict,
         return MatrixFreeQ1(c, m, K, geo.nodes)
 
     if "A1d.blocks" in d:
-        mid = {"A1_blocks": _tensor(d["A1d.blocks"])}
+        mid = mid_buffers(_tensor(d["A1d.blocks"]), meta["rects"],
+                          geo.bricks, device)
     else:
         NB = geo.num_bricks
         mid = {"A1_packed": torch.cat([

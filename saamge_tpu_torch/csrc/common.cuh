@@ -121,12 +121,19 @@ static inline Taus make_taus(const float* inv_tau, int k) {
   return t;
 }
 
-// Launch `func` cooperatively with as many blocks as can be resident at
-// once (capped by the work), so that grid-wide barriers are legal.  A
-// refused launch returns its error; nothing falls back.
-static inline cudaError_t launch_cooperative(const void* func, long work,
-                                             void** args,
-                                             cudaStream_t stream) {
+// Level r's output buffer of a chain of k roots (1 <= r <= k): levels
+// ping-pong between `out` and `tmp` so that the last root (r = k) lands
+// in `out` and no level writes the buffer it reads.
+__device__ __forceinline__ float* level_buf(int r, int k, float* out,
+                                            float* tmp) {
+  return ((k - r) % 2 == 0) ? out : tmp;
+}
+
+// Blocks of `func` (`threads` threads, `smem` dynamic shared bytes) that
+// can be resident at once on the whole card: the occupancy query times the
+// SMs.  Sets the kernel's dynamic shared-memory limit to `smem`.
+static inline cudaError_t cooperative_capacity(const void* func, int threads,
+                                               size_t smem, long* capacity) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -136,16 +143,50 @@ static inline cudaError_t launch_cooperative(const void* func, long work,
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, func,
-                                                    SAAMGE_THREADS, 0);
+  e = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  long need = (work + SAAMGE_THREADS - 1) / SAAMGE_THREADS;
-  long grid = (long)per_sm * sms;
-  if (need < grid) grid = need;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, func, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  *capacity = (long)per_sm * sms;
+  return cudaSuccess;
+}
+
+// Launch `func` cooperatively with exactly `grid` blocks, so that
+// grid-wide barriers are legal.  A grid larger than one resident wave is
+// refused with cudaErrorCooperativeLaunchTooLarge; nothing falls back.
+static inline cudaError_t launch_cooperative_grid(const void* func,
+                                                  long grid, int threads,
+                                                  size_t smem, void** args,
+                                                  cudaStream_t stream) {
+  long capacity = 0;
+  cudaError_t e = cooperative_capacity(func, threads, smem, &capacity);
+  if (e != cudaSuccess) return e;
+  if (grid < 1 || grid > capacity) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid), dim3(threads),
+                                  args, smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Launch `func` cooperatively with as many blocks as can be resident at
+// once, capped by the work (`work` items of one thread each); the kernel
+// loops over its work.
+static inline cudaError_t launch_cooperative(const void* func, long work,
+                                             void** args,
+                                             cudaStream_t stream,
+                                             int threads = SAAMGE_THREADS,
+                                             size_t smem = 0) {
+  long capacity = 0;
+  cudaError_t e = cooperative_capacity(func, threads, smem, &capacity);
+  if (e != cudaSuccess) return e;
+  if (capacity < 1) return cudaErrorCooperativeLaunchTooLarge;
+  long grid = (work + threads - 1) / threads;
+  if (grid > capacity) grid = capacity;
   if (grid < 1) grid = 1;
-  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid),
-                                  dim3(SAAMGE_THREADS), args, 0, stream);
+  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid), dim3(threads),
+                                  args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

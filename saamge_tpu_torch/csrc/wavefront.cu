@@ -42,12 +42,6 @@ namespace cg = cooperative_groups;
 
 #define WAVE_MIN_BLOCKS 3  // resident blocks per SM (80 registers, no spills)
 
-// Level r's output buffer: the last root (r = k) lands in `out`.
-__device__ __forceinline__ float* level_buf(int r, int k, float* out,
-                                            float* tmp) {
-  return ((k - r) % 2 == 0) ? out : tmp;
-}
-
 // Row t (< t_end) of one level: a root (res == nullptr) or the residual
 // into res.  Halo rows get 0.
 template <typename V, int K>

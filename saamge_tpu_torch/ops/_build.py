@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 MAX_ROOTS = 32          # SAAMGE_MAX_ROOTS of csrc/common.cuh
 SMEM_MAX = 232448       # shared bytes one block may use on an H100
+H100_SMS = 132          # SMs of an H100 SXM
 GRID_MAX = (2 ** 31 - 1, 65535)
 
 _lock = threading.Lock()
@@ -73,14 +74,19 @@ def _declare(lib) -> None:
                                      P, P, P, P]
     lib.saamge_window_R.argtypes = [I, P, P, P, P, P, P]
     lib.saamge_window_P.argtypes = [I, P, P, P, P, P, P]
-    lib.saamge_mid_chain.argtypes = [P, I, P, I, P, I, I, P, P, P, P, P,
-                                     P, P]
-    lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, F, P,
-                                 P]
+    lib.saamge_mid_chain.argtypes = [P, I, P, I, P, P, I, I, P, P, P, P,
+                                     P, P, P]
+    lib.saamge_mfree.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P, P, F,
+                                 P, P]
+    lib.saamge_mfree_point.argtypes = [I, P, P, I, P, I, I, I, I, P, P, P,
+                                       F, P, P]
+    lib.saamge_mfree_chain.argtypes = [P, P, I, P, I, I, I, I, P, P, I, I, P,
+                                       P, P, P, P, P, P]
     lib.saamge_midmv.argtypes = [I, P, I, P, I, P, P, P, P, F, P, P]
     lib.saamge_contract.argtypes = [I, I, P, I, I, I, P, P, P]
     for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
                  "saamge_window_P", "saamge_mid_chain", "saamge_mfree",
+                 "saamge_mfree_point", "saamge_mfree_chain",
                  "saamge_midmv", "saamge_contract"):
         getattr(lib, name).restype = I
     lib.saamge_error_string.argtypes = [I]

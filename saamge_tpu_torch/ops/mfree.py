@@ -26,15 +26,22 @@ kernel's (rows, 128) tiling, its lane-shift groups and its z-lane
 
 ``mfree_h`` launches the hand-written kernel (csrc/mfree.cu, replacing
 saamge_tpu/ops/pallas_mfree.py `_build_mfree`) for CUDA tensors and runs
-``mfree_plain_h`` for CPU tensors.  Arithmetic is f32; bf16 c and m are
-widened on load."""
+``mfree_plain_h`` for CPU tensors.  ``mfree_chain`` runs all roots of a
+smoothing chain and the trailing residual in one cooperative launch of
+the same kernel's body (the JAX package runs them as one pass each,
+saamge_tpu/solve/structured.py `_smooth_h`; ``mfree_chain_plain`` is that
+loop).  The kernel's block owns a tile of the flat (y, z) plane index
+and marches along x over a chunk of planes (``mfree_plan``).  Arithmetic
+is f32; bf16 c and m are widened on load.  ``mfree_point_h`` launches
+the first design (one thread a node), the reference the card's check
+holds the tiled pass to, bit for bit."""
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +168,48 @@ def mfree_plain_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
     return op.pad(y)
 
 
+THREADS = 256           # MFREE_THREADS of csrc/mfree.cu
+NODES = 512             # MFREE_NODES: nodes of a tile (two a thread)
+MIN_BLOCKS = 3          # MFREE_MIN_BLOCKS: resident blocks an SM
+MAX_WINDOW = 6          # window values a thread fetches a plane (XW)
+
+
+class MfreePlan(NamedTuple):
+    """Launch of csrc/mfree.cu: item i is tile ``i % tiles`` (flat plane
+    positions [tile * NODES, (tile + 1) * NODES) of the sx = NYn * NZn)
+    over the planes of chunk ``i // tiles`` ([chunk * planes, (chunk + 1)
+    * planes) of the NXn); ``smem`` bytes hold the ring of four x*m and
+    three c planes."""
+    planes: int
+    tiles: int
+    chunks: int
+    smem: int
+
+    def ints(self):
+        return tuple(self)
+
+    @property
+    def items(self) -> int:
+        return self.tiles * self.chunks
+
+
+def mfree_plan(dims, sms: int = _build.H100_SMS) -> MfreePlan:
+    """Cut the x range into chunks so that the items (tiles x chunks) fill
+    one wave of MIN_BLOCKS blocks on each of ``sms`` SMs."""
+    NXn, NYn, NZn = (int(v) for v in dims)
+    sx, sy = NYn * NZn, NZn
+    if NODES + 2 * sy + 2 > MAX_WINDOW * THREADS:
+        raise ValueError(f"NZn = {NZn}: the kernel's x*m window of "
+                         f"{NODES + 2 * sy + 2} nodes exceeds "
+                         f"{MAX_WINDOW} x {THREADS}")
+    tiles = -(-sx // NODES)
+    per = max(1, min(NXn, (MIN_BLOCKS * int(sms)) // tiles))
+    planes = -(-NXn // per)
+    smem = 4 * (4 * (NODES + 2 * sy + 2) + 3 * (NODES + sy + 1))
+    _build.check_plan(THREADS, (tiles * -(-NXn // planes),), smem)
+    return MfreePlan(planes, tiles, -(-NXn // planes), smem)
+
+
 @functools.lru_cache(maxsize=8)
 def _k_array(K):
     """K as the launcher's float[64], built once per matrix (the
@@ -168,10 +217,22 @@ def _k_array(K):
     return _build.float_array([v for row in K for v in row])
 
 
-def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
-            inv_tau: float = 0.0) -> torch.Tensor:
-    """One matrix-free pass in ``mode`` ('spmv', 'residual' or 'root')
-    on haloed vectors; the output's halo is zero."""
+@functools.lru_cache(maxsize=8)
+def _plan_array(dims, device_index: int):
+    sms = torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+    return _build.int_array(mfree_plan(dims, sms).ints())
+
+
+def _check_op(op: MatrixFreeQ1, vecs: dict) -> None:
+    size = op.n + 2 * op.halo
+    check(op.c_h, "c_h", (torch.float32, torch.bfloat16), (size,))
+    check(op.m_h, "m_h", op.c_h.dtype, (size,))
+    for name, v in vecs.items():
+        check(v, name, torch.float32, (size,))
+
+
+def _mode_vecs(mode: str, xh, bh, dinvh) -> dict:
     if mode not in MODES:
         raise ValueError(mode)
     vecs = {"x": xh}
@@ -179,27 +240,110 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
         vecs["b"] = bh
     if mode == "root":
         vecs["dinv"] = dinvh
+    return vecs
+
+
+def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
+            inv_tau: float = 0.0) -> torch.Tensor:
+    """One matrix-free pass in ``mode`` ('spmv', 'residual' or 'root')
+    on haloed vectors; the output's halo is zero."""
+    vecs = _mode_vecs(mode, xh, bh, dinvh)
     if not is_cuda(op.c_h, op.m_h, *vecs.values()):
         return mfree_plain_h(mode, op, xh, bh, dinvh, inv_tau)
-    size = op.n + 2 * op.halo
-    check(op.c_h, "c_h", (torch.float32, torch.bfloat16), (size,))
-    check(op.m_h, "m_h", op.c_h.dtype, (size,))
-    for name, v in vecs.items():
-        check(v, name, torch.float32, (size,))
+    _check_op(op, vecs)
+    lib = _build.load()
+    y = torch.empty_like(xh)
+    K = _k_array(op.K)
+    plan = _plan_array(tuple(op.dims), xh.device.index)
+    with torch.cuda.device(xh.device):
+        code = lib.saamge_mfree(
+            MODES[mode], op.c_h.data_ptr(), op.m_h.data_ptr(),
+            int(op.c_h.dtype == torch.bfloat16), ctypes.addressof(K),
+            *op.dims, op.halo, ctypes.addressof(plan), xh.data_ptr(),
+            vecs["b"].data_ptr() if "b" in vecs else None,
+            vecs["dinv"].data_ptr() if "dinv" in vecs else None,
+            float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
+    _build.check_launch(lib, code, "mfree")
+    mfree_h.launches += 1
+    mfree_h.mode_launches[mode] += 1
+    return y
+
+
+mfree_h.launches = 0
+mfree_h.mode_launches = dict.fromkeys(MODES, 0)
+
+
+def mfree_point_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
+                  inv_tau: float = 0.0) -> torch.Tensor:
+    """``mfree_h`` by the first design of its kernel, one thread a node
+    with every value from device memory: the reference that the tiled
+    pass must equal bit for bit on the card.  CPU tensors run the plain
+    version."""
+    vecs = _mode_vecs(mode, xh, bh, dinvh)
+    if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        return mfree_plain_h(mode, op, xh, bh, dinvh, inv_tau)
+    _check_op(op, vecs)
     lib = _build.load()
     y = torch.empty_like(xh)
     K = _k_array(op.K)
     with torch.cuda.device(xh.device):
-        code = lib.saamge_mfree(
+        code = lib.saamge_mfree_point(
             MODES[mode], op.c_h.data_ptr(), op.m_h.data_ptr(),
             int(op.c_h.dtype == torch.bfloat16), ctypes.addressof(K),
             *op.dims, op.halo, xh.data_ptr(),
             vecs["b"].data_ptr() if "b" in vecs else None,
             vecs["dinv"].data_ptr() if "dinv" in vecs else None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
-    _build.check_launch(lib, code, "mfree")
-    mfree_h.launches += 1
+    _build.check_launch(lib, code, "mfree_point")
+    mfree_point_h.launches += 1
     return y
 
 
-mfree_h.launches = 0
+mfree_point_h.launches = 0
+
+
+def mfree_chain_plain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
+                      emit_residual: bool = False):
+    """The roots one plain pass each, then the residual pass (the JAX
+    package's chain of root_h and residual_h)."""
+    for it in inv_taus:
+        xh = mfree_plain_h("root", op, xh, bh, dinvh, it)
+    if emit_residual:
+        return xh, mfree_plain_h("residual", op, xh, bh)
+    return xh
+
+
+def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
+                emit_residual: bool = False):
+    """Roots x <- x + dinv (b - A x) * inv_tau_r over haloed vectors, and
+    with ``emit_residual`` the residual b - A x: one cooperative launch
+    for CUDA tensors; returns xh' or (xh', resh)."""
+    if not 1 <= len(inv_taus) <= _build.MAX_ROOTS:
+        raise ValueError(f"{len(inv_taus)} roots: expected "
+                         f"1..{_build.MAX_ROOTS}")
+    vecs = {"x": xh, "b": bh, "dinv": dinvh}
+    if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        return mfree_chain_plain(op, inv_taus, bh, dinvh, xh, emit_residual)
+    _check_op(op, vecs)
+    lib = _build.load()
+    out = torch.empty_like(xh)
+    tmp = torch.empty_like(xh)
+    res = torch.empty_like(xh) if emit_residual else None
+    K = _k_array(op.K)
+    plan = _plan_array(tuple(op.dims), xh.device.index)
+    taus = _build.float_array(inv_taus)
+    with torch.cuda.device(xh.device):
+        code = lib.saamge_mfree_chain(
+            op.c_h.data_ptr(), op.m_h.data_ptr(),
+            int(op.c_h.dtype == torch.bfloat16), ctypes.addressof(K),
+            *op.dims, op.halo, ctypes.addressof(plan),
+            ctypes.addressof(taus), len(inv_taus), int(emit_residual),
+            bh.data_ptr(), dinvh.data_ptr(), xh.data_ptr(), out.data_ptr(),
+            tmp.data_ptr(), res.data_ptr() if res is not None else None,
+            _build.stream_ptr(xh.device))
+    _build.check_launch(lib, code, "mfree_chain")
+    mfree_chain.launches += 1
+    return (out, res) if emit_residual else out
+
+
+mfree_chain.launches = 0

@@ -14,12 +14,16 @@ blocks, and an f32 PCG operator.  One V-cycle runs
   fine post-smoothing sweep             (ops/wavefront.py, kernel)
 
 and PCG's operator is the f32 stencil matvec (ops/stencil.py, kernel).
+The mid chains keep the operator resident in shared memory; a mid
+operator whose tiles do not fit one wave of the card takes the packed
+passes of the capacity configuration instead, a choice made at compile
+(``mid_buffers``).
 
 The full-capacity configuration (``mfree`` with ``hbm_frugal``, the
 JAX package's ``run_capacity.py`` flags) keeps no stored fine operator
 and no full mid blocks on the device:
 
-  fine smoothing: chained matrix-free roots + residual  (ops/mfree.py)
+  fine smoothing: one matrix-free chain + residual     (ops/mfree.py)
   mid smoothing: one packed pass per root + residual    (ops/midmv.py)
   PCG operator: the f32 matrix-free pass                (ops/mfree.py)
 
@@ -44,15 +48,18 @@ import torch
 
 from saamge_tpu_torch.ops.contract import (contract_P, contract_R,
                                            extract_boxes, fold_boxes)
-from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, mfree_h
+from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, mfree_chain, mfree_h
 from saamge_tpu_torch.ops.midmv import midmv, pack_blocks
-from saamge_tpu_torch.ops.midsmooth import mid_chain
+from saamge_tpu_torch.ops.midsmooth import (MidTileMisfit, MidTilePlan,
+                                            card_limits, mid_chain,
+                                            mid_tile_plan, pack_tiles)
 from saamge_tpu_torch.ops.smoother import inv_taus_f32
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.ops.wavefront import wavefront_smooth
 from saamge_tpu_torch.ops.window import slot_ranges, window_P, window_R
 from saamge_tpu_torch.solve.device_pcg import pcg
+from saamge_tpu_torch.utils.logging import sa_print
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +224,27 @@ def brick_block_from_csr(Ac: sp.csr_matrix, cd_brick: np.ndarray,
     return blocks, doffs, tuple(rects)
 
 
+def mid_buffers(A1_blocks: torch.Tensor, rects, bricks, device) -> dict:
+    """The mid operator's buffers beside its full blocks: the resident
+    chain's tile-major packing (``A1_tiles``) and its launch plan
+    (``mid_plan``) when its tiles fit one resident wave of ``device``'s
+    card (ops/midsmooth.mid_tile_plan; for a CPU device the H100's), else
+    the packed rectangles (``A1_packed``) of the one-pass-per-root route.
+    A compile-time choice by shape, logged; the values are those of
+    ``A1_blocks``, exactly."""
+    try:
+        plan = mid_tile_plan(bricks, A1_blocks.shape[1], rects,
+                             *card_limits(device), A1_blocks.element_size())
+    except MidTileMisfit as e:
+        sa_print(1, f"mid operator: packed passes, not the resident chain "
+                 f"({e})")
+        return {"A1_blocks": A1_blocks, "A1_packed": torch.cat(
+            [A1_blocks[k, :r1, :r2].reshape(-1)
+             for k, (r1, r2) in enumerate(rects)])}
+    return {"A1_blocks": A1_blocks, "mid_plan": plan,
+            "A1_tiles": pack_tiles(A1_blocks, rects, plan.tile)}
+
+
 # ---------------------------------------------------------------------------
 # device-side hierarchy
 
@@ -230,9 +258,14 @@ class StructuredHierarchy(torch.nn.Module):
     diagonals (buffer ``<name>_vals``, (k, n), ops/sparse.DIA) or
     matrix-free (buffers ``<name>_c`` and ``<name>_m``, the haloed
     coefficient field and node mask, ops/mfree.MatrixFreeQ1).  The mid
-    operator is the full blocks ``A1_blocks`` (k1, bs, bs, NB), run by
-    the resident chain, or the packed rectangles ``A1_packed``
-    (ops/midmv.py), run as one root pass per root; the other is None.  Other
+    operator runs by one of two routes (``mid_route``): "resident", the
+    chain kernel on ``A1_tiles``, the tile-major packing of the full
+    blocks ``A1_blocks`` (k1, bs, bs, NB) in tiles of ``mid_plan.tile``
+    bricks (ops/midsmooth.pack_tiles), launched by ``mid_plan``, with the
+    plain chain on ``A1_blocks``; or
+    "packed", one root pass per root over the packed rectangles
+    ``A1_packed`` (ops/midmv.py), with ``A1_blocks`` kept where the
+    hierarchy is not hbm_frugal.  Other
     buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
     blocks and, for the window kernels, Rst_rng (2, box, NB) their
     nonzero slot ranges; dinv1 (bs*NB,) mid scaling (0 on padding
@@ -244,12 +277,17 @@ class StructuredHierarchy(torch.nn.Module):
 
     def __init__(self, *, A0, A0s, dinv0, taus0, Rst, doffs, rects, dinv1,
                  taus1, Rst1, flat_id, flat_id2, Ainv, geo: BrickGeometry,
-                 supers, A1_blocks=None, A1_packed=None,
+                 supers, A1_blocks=None, A1_tiles=None,
+                 mid_plan: MidTilePlan | None = None, A1_packed=None,
                  contract: bool = False):
         super().__init__()
         self.contract = bool(contract)
-        if (A1_blocks is None) == (A1_packed is None):
-            raise ValueError("give exactly one of A1_blocks and A1_packed")
+        if (A1_tiles is None) == (A1_packed is None):
+            raise ValueError("give exactly one of A1_tiles and A1_packed")
+        if A1_tiles is not None and (A1_blocks is None or mid_plan is None):
+            raise ValueError("the resident mid chain needs A1_blocks and "
+                             "its mid_plan")
+        self.mid_plan = mid_plan
         if A0.halo != A0s.halo:
             raise ValueError(f"PCG operator halo {A0.halo} != smoother "
                              f"twin halo {A0s.halo}")
@@ -279,6 +317,7 @@ class StructuredHierarchy(torch.nn.Module):
         self.register_buffer("Rst_rng",
                              None if self.contract else slot_ranges(Rst))
         self.register_buffer("A1_blocks", A1_blocks)
+        self.register_buffer("A1_tiles", A1_tiles)
         self.register_buffer("A1_packed", A1_packed)
         self.register_buffer("dinv1", dinv1.to(torch.float32))
         self.register_buffer("Rst1", Rst1)
@@ -302,6 +341,10 @@ class StructuredHierarchy(torch.nn.Module):
     @property
     def A0s(self):
         return self._fine_op("A0s")
+
+    @property
+    def mid_route(self) -> str:
+        return "resident" if self.A1_tiles is not None else "packed"
 
     @property
     def bs(self) -> int:
@@ -371,9 +414,9 @@ class StructuredHierarchy(torch.nn.Module):
     def mid_correct(self, rc: torch.Tensor) -> torch.Tensor:
         """Pre mid-chain (+ residual), coarsest correction, post
         mid-chain, on the slot-major padded mid layout."""
-        if self.A1_packed is None:
-            args = (self.A1_blocks, self.doffs, self.rects, self.geo.bricks,
-                    self.taus1)
+        if self.mid_route == "resident":
+            args = (self.A1_blocks, self.A1_tiles, self.mid_plan, self.doffs,
+                    self.rects, self.geo.bricks, self.taus1)
             x1, r1 = mid_chain(*args, rc, self.dinv1, torch.zeros_like(rc),
                                emit_res=True)
             x1 = x1 + self.coarsest_correct(r1)
@@ -389,18 +432,13 @@ class StructuredHierarchy(torch.nn.Module):
         return x1
 
     def _smooth_h(self, A, bh, xh, emit_res: bool = False):
-        """All fine roots (+ the trailing residual): one sweep kernel for
-        stored diagonals, chained passes for the matrix-free operator
-        (the sweep applies only to stored diagonals, as in JAX)."""
-        if isinstance(A, DIA):
-            return wavefront_smooth(A, self.taus0, bh, self.dinv0h, xh,
-                                    emit_residual=emit_res)
-        for it in self.taus0:
-            xh = mfree_h("root", A, xh, bh=bh, dinvh=self.dinv0h,
-                         inv_tau=it)
-        if emit_res:
-            return xh, mfree_h("residual", A, xh, bh=bh)
-        return xh
+        """All fine roots (+ the trailing residual) in one launch: the
+        sweep kernel for stored diagonals, the matrix-free chain kernel
+        for the matrix-free operator (its plain version is the JAX
+        package's loop of root passes and a residual pass)."""
+        smooth = wavefront_smooth if isinstance(A, DIA) else mfree_chain
+        return smooth(A, self.taus0, bh, self.dinv0h, xh,
+                      emit_residual=emit_res)
 
     def vcycle(self, b: torch.Tensor) -> torch.Tensor:
         """One V-cycle from a zero initial guess (tg_cycle_atb,
@@ -487,7 +525,8 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
     if hbm_frugal:
         mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
     else:
-        mid = {"A1_blocks": t(blocks).to(torch.float32).to(mid_dtype)}
+        mid = mid_buffers(t(blocks).to(torch.float32).to(mid_dtype), rects,
+                          geo.bricks, device)
     h = StructuredHierarchy(
         A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
         taus0=inv_taus_f32(pd0.roots),
