@@ -8,14 +8,17 @@ Phases (one line each; any failure raises and exits non-zero):
   2. build    -- nvcc-builds the hand-written kernels (csrc/*.cu, sm_90a),
                  one nvcc per source, in parallel; prints ptxas's
                  registers, shared bytes and spills of the packed mid
-                 matvec, window R / P, sweep, mid chain and matrix-free
-                 pass and chain kernels
+                 matvec, window R / P, sweep, mid chain, matrix-free
+                 pass and chain, and contract R / P kernels
   2b. ragged  -- those kernels against their plain versions: brick grids
                  with no side a multiple of a tile ((5,3,7), odd: the
                  scalar-load path; (6,5,4), even: the 2-wide one),
                  bs = 13, ragged rectangles (r1 = 0, r2 = bs, (bs, bs)),
                  brick_elems (4,4,4) and (8,8,8), f32 and bf16, every
                  matvec mode, window P on dense and sparse slot ranges;
+                 contract R and P (f32 and bf16, dense and sparse, NB =
+                 130 and 64; P bit-equal to its full-range launch, both
+                 raising without their tables);
                  the sweep on odd grids, 1 / 2 / 10 roots, with and
                  without the residual, 27 and 7 taps; the resident mid
                  chain with tiles of 2, 8 and 14 bricks, 1 / 4 roots,
@@ -46,8 +49,13 @@ Phases (one line each; any failure raises and exits non-zero):
                  PCG matvec), and the packed pass in its root and
                  residual modes
   6. contract -- the same for the box-contraction hierarchy and its two
-                 kernels; its PCG launches no window kernel and must take
-                 within one iteration of the flagship's
+                 kernels (R on the by-slot node lists, P on the slot
+                 ranges; the bound counts the tent's nonzero values and
+                 the two vectors, beside the bytes of the 32-byte sectors
+                 that hold them); both must repeat bit for bit, and P
+                 equal its launch with full ranges; its PCG launches no
+                 window kernel and must take within one iteration of the
+                 flagship's
   7. general  -- the general (unstructured) path: the hexkway host setup
                  (generic k-way agglomeration, 274,625 dofs at n=64, 3
                  levels), compile_hierarchy, the fused smoother kernel,
@@ -278,7 +286,11 @@ def ragged_checks(dev, torch, np, k):
     and bf16; each result must also repeat bit for bit.  Window P runs
     on a dense tent (every slot range [0, bs)) and on a sparse one with
     all-zero and partial slot ranges, and must equal, bit for bit, its
-    own launch with the full ranges (the dense slot loop).  The sweep
+    own launch with the full ranges (the dense slot loop); so must
+    contract P, beside contract R on its slot lists, f32 and bf16, dense
+    and sparse, on (bs, box, NB) = (5, 27, 130) and (3, 125, 64); both
+    must raise on the card without their slot tables.
+    The sweep
     runs on odd grids, with 1, 2 and 10 roots, with and without the
     residual, and on a 7-point operator (the runtime tap count).  The
     resident mid chain runs on the same brick grids and rectangles with
@@ -366,6 +378,43 @@ def ragged_checks(dev, torch, np, k):
                                   (lambda a=a, f=full:
                                    k["window_P"](*a, ranges=f),
                                    "its launch with the full slot ranges")))
+    for cbs, cbox, cNB in ((5, 27, 130), (3, 125, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            Rst = vec(cbs, cbox, cNB)
+            lo = torch.as_tensor(rng.integers(0, cbs, (cbox, cNB)))
+            ln = torch.as_tensor(rng.integers(0, 4, (cbox, cNB)))
+            ln[torch.as_tensor(rng.random((cbox, cNB)) < 0.25)] = 0
+            s = torch.arange(cbs)[:, None, None]
+            keep = ((s >= lo) & (s < lo + ln)).to(dev)
+            Rsp = torch.where(keep, vec(cbs, cbox, cNB), 0.0)
+            boxes, xcb = vec(cbox, cNB), vec(cbs, cNB)
+            full = torch.stack([torch.zeros(cbox, cNB),
+                                torch.full((cbox, cNB), cbs)]) \
+                .to(torch.uint8).to(dev)
+            for kind, R in (("dense", Rst.to(dtype)), ("sparse",
+                                                      Rsp.to(dtype))):
+                rg, sl = k["slot_ranges"](R), k["slot_lists"](R)
+                what = f"{(cbs, cbox, cNB)} {dtype} {kind}"
+                cases.append((f"contract_R {what}",
+                              lambda a=(R, boxes), sl=sl:
+                              k["contract_R"](*a, lists=sl),
+                              lambda a=(R, boxes): k["contract_R_plain"](*a),
+                              None))
+                cases.append((f"contract_P {what}",
+                              lambda a=(R, xcb), rg=rg:
+                              k["contract_P"](*a, ranges=rg),
+                              lambda a=(R, xcb): k["contract_P_plain"](*a),
+                              (lambda a=(R, xcb), fr=full:
+                               k["contract_P"](*a, ranges=fr),
+                               "its launch with the full slot ranges")))
+            # on the card both raise without their tables
+            for name, x in (("contract_R", boxes), ("contract_P", xcb)):
+                try:
+                    k[name](Rst, x)
+                except ValueError:
+                    continue
+                raise RuntimeError(f"{name} ran on the card without its "
+                                   "slot table")
     DIA = k["DIA"]
     for dims in ((23, 29, 31), (17, 13, 47)):
         n = dims[0] * dims[1] * dims[2]
@@ -446,6 +495,8 @@ def ragged_checks(dev, torch, np, k):
     log("ragged", cases=len(cases), max_rel_err=f"{worst:.3e}",
         tol="1e-5 (sweep and chains 1e-4)", bit_reproducible=True,
         window_P_ranges_bit_equal_dense_loop=True,
+        contract_P_ranges_bit_equal_full_ranges=True,
+        contract_raise_without_tables=True,
         mfree_bit_equal_point_reference=True,
         mfree_chain_bit_equal_single_passes=True)
 
@@ -800,7 +851,8 @@ def main() -> int:
     from saamge_tpu_torch.ops import _build
     from saamge_tpu_torch.ops.contract import (contract_P, contract_P_plain,
                                                contract_R, contract_R_plain,
-                                               extract_boxes)
+                                               contract_R_plan,
+                                               extract_boxes, slot_lists)
     from saamge_tpu_torch.ops.mfree import (MatrixFreeQ1, mfree_chain,
                                             mfree_chain_plain, mfree_h,
                                             mfree_plain_h, mfree_plan,
@@ -828,6 +880,8 @@ def main() -> int:
                        "mfree", "mfree_chain", "midmv", "contract_R",
                        "contract_P")
     kern = dict(wrappers, midmv_plain=midmv_plain,
+                contract_R_plain=contract_R_plain,
+                contract_P_plain=contract_P_plain, slot_lists=slot_lists,
                 window_R_plain=window_R_plain,
                 window_P_plain=window_P_plain, slot_ranges=slot_ranges,
                 wavefront_plain=wavefront_plain, DIA=DIA,
@@ -867,7 +921,9 @@ def main() -> int:
               ("wavefront.cu", "wavefront_kernel"),
               ("midsmooth.cu", "mid_chain_kernel"),
               ("mfree.cu", "mfree_pass_kernel"),
-              ("mfree.cu", "mfree_chain_kernel"))}
+              ("mfree.cu", "mfree_chain_kernel"),
+              ("contract.cu", "contract_R_kernel"),
+              ("contract.cu", "contract_P_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
     ragged_checks(dev, torch, np, kern)
@@ -1155,22 +1211,49 @@ def main() -> int:
     # 6. contract -------------------------------------------------------
     if "contract" in paths:
         hk = copy.deepcopy(hk_cpu).to(dev)
+        rg, sl = hk.Rst_rng, hk.slot_lists
         boxes = extract_boxes(vec(ndof), *geo_args)
         xck = vec(hk.n_flat).view(hk.bs, NB)
-        kwork = (nbytes(hk.Rst) + (box + hk.bs) * NB * 4,
-                 2 * hk.Rst.numel())
+        # the tent's nonzero values and the two vectors: what any R or P
+        # must move (as tent_work); beside it the 32-byte sectors of Rst
+        # that hold a nonzero
+        nz = hk.Rst != 0
+        nnz = int(nz.sum())
+        pad = (-NB) % 8
+        sectors = int(torch.nn.functional.pad(nz, (0, pad))
+                      .view(hk.bs, box, -1, 8).any(-1).sum())
+        vecs = (box + hk.bs) * NB * 4
+        kwork = (nnz * hk.Rst.element_size() + vecs, 2 * nnz)
+        log("contract", rst_values=hk.Rst.numel(), rst_nnz=nnz,
+            nnz_bytes=kwork[0], bound_ms=f"{bound(kwork)[0]:.4f}",
+            sector_bytes=sectors * 32 + vecs,
+            sector_bound_ms=f"{bound((sectors * 32 + vecs, 0))[0]:.4f}",
+            slot_range_bytes=nbytes(rg), slot_list_bytes=nbytes(*sl[:4]),
+            fold_index_bytes=nbytes(hk.fold_idx),
+            r_plan=contract_R_plan(hk.bs * NB, sl.nlong, sl.nshort))
+        del nz
         records += run_kernels([
             ("contract_R", 1e-5, "contract.cu", "pallas_contract.py:47",
-             lambda: contract_R(hk.Rst, boxes),
+             lambda: contract_R(hk.Rst, boxes, lists=sl),
              lambda: contract_R_plain(hk.Rst, boxes), kwork,
              lambda: torch.einsum("cbn,bn->cn", hk.Rst, boxes)),
             ("contract_P", 1e-5, "contract.cu", "pallas_contract.py:47",
-             lambda: contract_P(hk.Rst, xck),
+             lambda: contract_P(hk.Rst, xck, ranges=rg),
              lambda: contract_P_plain(hk.Rst, xck), kwork,
              lambda: torch.einsum("cbn,cn->bn", hk.Rst, xck)),
         ], torch, device_profile)
-        records[-2]["case"] = records[-1]["case"] = "f32 Rst"
-        del boxes, xck
+        records[-2]["case"] = "f32 Rst, by-slot node lists"
+        records[-1]["case"] = "f32 Rst, slot ranges"
+        full_rg = torch.stack([torch.zeros_like(rg[0]),
+                               torch.full_like(rg[1], hk.bs)])
+        bit_checks("contract", [
+            ("contract_R repeat", lambda: contract_R(hk.Rst, boxes, sl),
+             lambda: contract_R(hk.Rst, boxes, sl)),
+            ("contract_P repeat", lambda: contract_P(hk.Rst, xck, rg),
+             lambda: contract_P(hk.Rst, xck, rg)),
+            ("contract_P full ranges", lambda: contract_P(hk.Rst, xck, rg),
+             lambda: contract_P(hk.Rst, xck, full_rg))], torch)
+        del boxes, xck, full_rg, sl
         if full:
             con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers,
                             torch, np, struct_vcycle_apply, s_pcg)

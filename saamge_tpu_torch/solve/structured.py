@@ -46,8 +46,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from saamge_tpu_torch.ops.contract import (contract_P, contract_R,
-                                           extract_boxes, fold_boxes)
+from saamge_tpu_torch.ops.contract import (SlotLists, contract_P,
+                                           contract_R, extract_boxes,
+                                           fold_boxes, fold_index,
+                                           slot_lists)
 from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, mfree_chain, mfree_h
 from saamge_tpu_torch.ops.midmv import midmv, pack_blocks
 from saamge_tpu_torch.ops.midsmooth import (MidTileMisfit, MidTilePlan,
@@ -265,15 +267,17 @@ class StructuredHierarchy(torch.nn.Module):
     plain chain on ``A1_blocks``; or
     "packed", one root pass per root over the packed rectangles
     ``A1_packed`` (ops/midmv.py), with ``A1_blocks`` kept where the
-    hierarchy is not hbm_frugal.  Other
-    buffers: dinv0h haloed fine smoother scaling; Rst (bs, box, NB) tent
-    blocks and, for the window kernels, Rst_rng (2, box, NB) their
-    nonzero slot ranges; dinv1 (bs*NB,) mid scaling (0 on padding
-    slots); Rst1 (bs2, win, NB2) superbrick tent blocks; flat_id /
-    flat_id2 real-dof ids in the padded layouts; Ainv the coarsest
-    inverse (f32 or bf16).  With
-    ``contract`` the tent R/P run as box contractions (ops/contract.py)
-    instead of the window kernels."""
+    hierarchy is not hbm_frugal.  Other buffers: dinv0h haloed fine
+    smoother scaling; Rst (bs, box, NB) tent blocks and Rst_rng (2, box,
+    NB) their nonzero slot ranges; dinv1 (bs*NB,) mid scaling (0 on
+    padding slots); Rst1 (bs2, win, NB2) superbrick tent blocks; flat_id
+    / flat_id2 real-dof ids in the padded layouts; Ainv the coarsest
+    inverse (f32 or bf16).  With ``contract`` the tent R/P run as box
+    contractions (ops/contract.py) instead of the window kernels:
+    slot_order, slot_start, slot_val and slot_node are contract R's
+    by-slot node lists (ops/contract.slot_lists, with the length classes
+    ``slot_classes``), and fold_idx (n,) int32 is the box fold's gather
+    index."""
 
     def __init__(self, *, A0, A0s, dinv0, taus0, Rst, doffs, rects, dinv1,
                  taus1, Rst1, flat_id, flat_id2, Ainv, geo: BrickGeometry,
@@ -313,9 +317,19 @@ class StructuredHierarchy(torch.nn.Module):
         self.register_buffer("dinv0h", torch.nn.functional.pad(
             dinv0.to(torch.float32), (A0.halo, A0.halo)))
         self.register_buffer("Rst", Rst)
-        # window P's table of the nonzero slots (ops/window.slot_ranges)
-        self.register_buffer("Rst_rng",
-                             None if self.contract else slot_ranges(Rst))
+        # the table of the nonzero slots (ops/window.slot_ranges) that
+        # window P and both contractions read
+        self.register_buffer("Rst_rng", slot_ranges(Rst))
+        # contract R's by-slot node lists (ops/contract.slot_lists) and
+        # the box fold's gather index (ops/contract.fold_index)
+        lists = slot_lists(Rst) if self.contract else None
+        for name in SlotLists._fields[:4]:
+            self.register_buffer(f"slot_{name}",
+                                 getattr(lists, name, None))
+        self.slot_classes = lists[4:] if lists is not None else None
+        self.register_buffer("fold_idx", fold_index(
+            geo.bricks, geo.brick_elems, Rst.device) if self.contract
+            else None)
         self.register_buffer("A1_blocks", A1_blocks)
         self.register_buffer("A1_tiles", A1_tiles)
         self.register_buffer("A1_packed", A1_packed)
@@ -360,17 +374,26 @@ class StructuredHierarchy(torch.nn.Module):
         fn = stencil_h if isinstance(A0, DIA) else mfree_h
         return A0.unpad(fn("spmv", A0, A0.pad(x)))
 
+    @property
+    def slot_lists(self) -> SlotLists | None:
+        if self.slot_classes is None:
+            return None
+        return SlotLists(self.slot_order, self.slot_start, self.slot_val,
+                         self.slot_node, *self.slot_classes)
+
     def apply_R(self, res: torch.Tensor) -> torch.Tensor:
         geo = (self.geo.bricks, self.geo.brick_elems)
         if self.contract:
-            return contract_R(self.Rst, extract_boxes(res, *geo)).reshape(-1)
+            return contract_R(self.Rst, extract_boxes(res, *geo),
+                              lists=self.slot_lists).reshape(-1)
         return window_R(self.Rst, res, *geo)
 
     def apply_P(self, xc: torch.Tensor) -> torch.Tensor:
         geo = (self.geo.bricks, self.geo.brick_elems)
         if self.contract:
-            C = contract_P(self.Rst, xc.view(self.bs, -1))
-            return fold_boxes(C, *geo)
+            C = contract_P(self.Rst, xc.view(self.bs, -1),
+                           ranges=self.Rst_rng)
+            return fold_boxes(C, self.fold_idx)
         return window_P(self.Rst, xc, *geo, ranges=self.Rst_rng)
 
     # -- coarsest level (plain torch, as the JAX package leaves it to XLA)
