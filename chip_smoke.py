@@ -27,11 +27,26 @@ Phases (one line each; any failure raises and exits non-zero):
                  / 10 roots, +- residual, equal bit for bit to its single
                  passes) on odd node grids; two launches must agree bit
                  for bit
-  3. setup    -- ONE flagship host setup (912,673 dofs at n=96) with the
-                 matrix-free factors; from it the flagship hierarchy, the
-                 full-capacity one (mfree + hbm_frugal + bf16 coarsest
-                 inverse) and the box-contraction one (f32 tent blocks,
-                 use_pallas_contract), each on the CPU
+  3. setup    -- ONE flagship setup (912,673 dofs at n=96) with the
+                 matrix-free factors, its local eigenproblems on the card
+                 (device_setup=True, as bench.py: the uniform-brick
+                 pipeline, 1,728 AEs of 729 dofs through the Chebyshev
+                 filter); prints the setup seconds and the timers' split
+                 (setup.device_pipeline and its .eigh / .fetch / .aes /
+                 .rr, the rest on the host), the AEs per eigensolver route
+                 (filter, eigh, host, exact host re-solve) per level, the
+                 setup's peak device bytes, allow_tf32, and the filter
+                 round's GFLOP/s beside torch.bmm at (512, 729, 64); from
+                 it the flagship hierarchy, the full-capacity one (mfree +
+                 hbm_frugal + bf16 coarsest inverse) and the box-
+                 contraction one (f32 tent blocks, use_pallas_contract),
+                 each on the CPU
+  3b. parity  -- the host and the device setup of a small flagship (n=32,
+                 superbricks (2,2,2): the uniform pipeline) and a small
+                 hexkway (n=24: the generic batched eigensolver): per AE
+                 the same cut count (every level) and B-projectors within
+                 5e-3 (finest level), equal coarse dims, host f64 PCG
+                 iterations within 1
   4. flagship -- on the card: its kernels against their plain torch
                  versions (CUDA-event timings `ms`; `device_ms`, the
                  kernels' own device time per call from one profiler
@@ -56,9 +71,13 @@ Phases (one line each; any failure raises and exits non-zero):
                  equal its launch with full ranges; its PCG launches no
                  window kernel and must take within one iteration of the
                  flagship's
-  7. general  -- the general (unstructured) path: the hexkway host setup
+  7. general  -- the general (unstructured) path: the hexkway setup
                  (generic k-way agglomeration, 274,625 dofs at n=64, 3
-                 levels), compile_hierarchy, the fused smoother kernel,
+                 levels; device_setup=True: the batched eigensolver on the
+                 card, its split and routes as in phase 3; other coarse
+                 dims than [16652, 367] raise with the per-AE difference
+                 from the host setup), compile_hierarchy, the fused
+                 smoother kernel,
                  then the slice; its PCG launches the smoother and the
                  stencil and no structured-only kernel
 Each hierarchy leaves the card before the next arrives, so each path's
@@ -69,7 +88,11 @@ Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
 ``--paths`` runs some of flagship, capacity, contract and general;
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
-no PCG); ``--synthetic`` skips every host setup and times the stencil,
+no PCG); ``--host-setup`` builds both paths' hierarchies with the host
+setup (device_setup=False; no phase 3b), for the host-against-device
+setup time; ``--general-n 100`` logs the general path against the JAX
+record (coarse dims [61300, 1984], PCG 23 / 30);
+``--synthetic`` skips every host setup and times the stencil,
 the sweep, the resident mid chain and the matrix-free pass and chain on
 n=96-shaped operands made from a numpy seed (with each chain's time per
 level and the time of one grid barrier of its grid), and the general
@@ -91,6 +114,9 @@ FLAGSHIP_DIMS = [18917, 287]          # coarse dims of the n=96 flagship
 PCG_MAX = {1e-6: 19, 1e-8: 25}        # JAX records 18 / 24 at n=96
 GENERAL_DIMS = [16652, 367]           # coarse dims of hexkway n=64
 GENERAL_PCG_MAX = {1e-6: 18, 1e-8: 22}  # host f64 PCG 17 / 21, plus 1
+# the JAX record of the hexkway general run (GENERAL_r05_hexkway.json):
+# coarse dims and PCG iterations at 1e-6 / 1e-8
+GENERAL_JAX = {100: ([61300, 1984], [23, 30])}
 TOLS = (1e-6, 1e-8)
 PATHS = ("flagship", "capacity", "contract", "general")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
@@ -609,6 +635,136 @@ def leave_card(torch):
     torch.cuda.empty_cache()
 
 
+# the device setup's phases (setup/interp.py, setup/device_setup.py) and
+# the generic batched path's (ops/batched_eig.py through interp.py)
+SETUP_PHASES = ("setup.device_pipeline", "setup.device_pipeline.eigh",
+                "setup.device_pipeline.fetch", "setup.device_pipeline.aes",
+                "setup.device_pipeline.rr", "setup.ae_assembly",
+                "setup.local_eigensolves", "setup.local_eigensolves.host",
+                "setup.local_eigensolves.resolve")
+
+
+def timed_setup(path, build, dev, torch):
+    """Run ``build()`` (a host or device setup) with the setup timers
+    and the card's peak memory counter reset; log its seconds, the
+    timers' split, the AEs per eigensolver route of each level and the
+    peak device bytes.  Returns (build's result, setup seconds)."""
+    from saamge_tpu_torch.utils.logging import TIMERS
+    TIMERS.totals.clear()
+    TIMERS.counts.clear()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = build()
+    setup_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ml = out[0]
+    tot = TIMERS.totals
+    eig_s = tot.get("setup.device_pipeline", 0.0) \
+        + tot.get("setup.local_eigensolves", 0.0)
+    log(path + " setup", setup_s=f"{setup_s:.2f}",
+        eigensolve_s=f"{eig_s:.2f}", rest_s=f"{setup_s - eig_s:.2f}",
+        split=json.dumps({k: round(tot[k], 3) for k in SETUP_PHASES
+                          if k in tot}),
+        routes=json.dumps([lv.tg_data.interp_data.eig_routes
+                           for lv in ml.levels]),
+        peak_device_bytes=peak,
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    log(path + " timers", all=json.dumps({k: round(v, 3)
+                                          for k, v in sorted(tot.items())}))
+    return out, setup_s
+
+
+def host_pcg_iters(ml, A, b, np, tols=TOLS):
+    """Host f64 PCG iterations with the hierarchy's V-cycle (the
+    SpectralAMGSolver solve), at each tolerance."""
+    from saamge_tpu_torch.solve.pcg import pcg
+    from saamge_tpu_torch.solve.vcycle import VCycleSolver
+    pre = VCycleSolver(ml.finest.tg_data)
+    pre.set_operator(A)
+
+    def mult(r):
+        z = np.zeros_like(r)
+        pre.mult(r, z)
+        return z
+    return [pcg(A, b, mult, rel_tol=t, max_iter=300).iterations
+            for t in tols]
+
+
+def nearest_theta(interp, p, theta, np):
+    """The eigenvalue of AE p's scaled operator B^-1/2 A B^-1/2 nearest
+    theta (host f64, from the level's AE and B)."""
+    A = interp.AEs_stiffm[p]
+    A = A.toarray() if hasattr(A, "toarray") else np.asarray(A)
+    dh = 1.0 / np.sqrt(interp.rhs_matrices_arr[p])
+    ev = np.linalg.eigvalsh(dh[:, None] * A * dh[None, :])
+    return float(ev[np.argmin(np.abs(ev - theta))])
+
+
+def setup_faults(ml_h, ml_d, np, proj_tol=5e-3):
+    """Host against device setup of one problem, per AE: the cut count
+    on every level with as many AEs on both sides, and on the finest
+    level (the same AE operators on both sides; a coarser level's AEs
+    are written in each setup's own tent basis) the B-projector's
+    difference relative to the host's.  Returns (faults, worst
+    projector difference); a fault is (level, AE, host count, device
+    count, the eigenvalue nearest theta)."""
+    faults, worst = [], 0.0
+    for lev, (lh, ld) in enumerate(zip(ml_h.levels, ml_d.levels)):
+        ih, idv = lh.tg_data.interp_data, ld.tg_data.interp_data
+        if len(ih.cut_evects_arr) != len(idv.cut_evects_arr):
+            faults.append((lev, None, len(ih.cut_evects_arr),
+                           len(idv.cut_evects_arr), None))
+            continue
+        for p, (Xh, Xd) in enumerate(zip(ih.cut_evects_arr,
+                                         idv.cut_evects_arr)):
+            if Xh.shape[1] != Xd.shape[1]:
+                faults.append((lev, p, Xh.shape[1], Xd.shape[1],
+                               nearest_theta(ih, p, lh.tg_data.theta, np)))
+            elif lev == 0:
+                Ph = Xh @ Xh.T * ih.rhs_matrices_arr[p][None, :]
+                Pd = Xd @ Xd.T * idv.rhs_matrices_arr[p][None, :]
+                d = float(np.linalg.norm(Pd - Ph) / np.linalg.norm(Ph))
+                worst = max(worst, d)
+                if not d <= proj_tol:
+                    faults.append((lev, p, "projector", d, None))
+    return faults, worst
+
+
+def setup_parity(dev, torch, np, flagship_problem, general_problem):
+    """Phase 3b: the host and the device setup of a small flagship and a
+    small hexkway problem agree per AE, in coarse dims and in host PCG
+    iterations (within 1)."""
+    cases = (("flagship n=32", lambda ds: flagship_problem(
+                 n=32, brick=8, supers=(2, 2, 2), device_setup=ds,
+                 device=dev)),
+             ("hexkway n=24", lambda ds: general_problem(
+                 n=24, device_setup=ds, device=dev)))
+    for name, build in cases:
+        (ml_h, *rest), _ = timed_setup(f"parity {name} host",
+                                       lambda: build(False), dev, torch)
+        (ml_d, *_), _ = timed_setup(f"parity {name} device",
+                                    lambda: build(True), dev, torch)
+        A, b = (ml_h.levels[0].A, rest[0]) if name.startswith("flagship") \
+            else (rest[0], rest[1])
+        dims = [[int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+                for ml in (ml_h, ml_d)]
+        its = [host_pcg_iters(ml, A, b, np) for ml in (ml_h, ml_d)]
+        faults, worst = setup_faults(ml_h, ml_d, np)
+        log("parity", case=name, coarse_dims_host=dims[0],
+            coarse_dims_device=dims[1], host_pcg_iters=its[0],
+            device_pcg_iters=its[1], aes=len(ml_h.levels[0].tg_data
+                                            .interp_data.cut_evects_arr),
+            worst_projector_rel_diff=f"{worst:.3e}", faults=faults)
+        if faults or dims[0] != dims[1] or any(
+                abs(a - c) > 1 for a, c in zip(*its)):
+            raise RuntimeError(f"setup parity {name}: dims {dims}, PCG "
+                               f"{its}, per-AE faults {faults}")
+        del ml_h, ml_d, rest
+    leave_card(torch)
+
+
 BARRIER_PROBE = r'''
 #include <cooperative_groups.h>
 namespace cg = cooperative_groups;
@@ -830,6 +986,11 @@ def main() -> int:
                     help="development only: no host setup; time the "
                          "stencil and the sweep on seeded n=96-shaped "
                          "operands")
+    ap.add_argument("--host-setup", action="store_true",
+                    help="development only: build both paths' "
+                         "hierarchies with the host setup "
+                         "(device_setup=False), for the host-against-"
+                         "device setup time")
     args = ap.parse_args()
     paths = args.paths.split(",")
     if not set(paths) <= set(PATHS):
@@ -853,6 +1014,7 @@ def main() -> int:
                                                contract_R, contract_R_plain,
                                                contract_R_plan,
                                                extract_boxes, slot_lists)
+    from saamge_tpu_torch.ops.filtered_eig import measure_eig_throughput
     from saamge_tpu_torch.ops.mfree import (MatrixFreeQ1, mfree_chain,
                                             mfree_chain_plain, mfree_h,
                                             mfree_plain_h, mfree_plan,
@@ -947,13 +1109,15 @@ def main() -> int:
     records, results = [], {}
     k0 = 27
 
+    device_setup = not args.host_setup
+
     # 3. setup ----------------------------------------------------------
     if {"flagship", "capacity", "contract"} & set(paths):
-        t0 = time.perf_counter()
         supers = (2, 2, 2) if args.n < 32 else None
-        ml, b_np, geo, supers, fac = flagship_problem(
-            n=args.n, brick=args.brick, supers=supers, mfree=True)
-        setup_s = time.perf_counter() - t0
+        (ml, b_np, geo, supers, fac), setup_s = timed_setup(
+            "flagship", lambda: flagship_problem(
+                n=args.n, brick=args.brick, supers=supers, mfree=True,
+                device_setup=device_setup, device=dev), dev, torch)
         dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
         A_host = ml.levels[0].A
         t0 = time.perf_counter()
@@ -977,14 +1141,27 @@ def main() -> int:
         ndof = h_cpu.n
         del ml, Ac
         log("setup", n=args.n, ndof=ndof, coarse_dims=dims, bs=h_cpu.bs,
-            supers=supers, setup_s=f"{setup_s:.1f}",
-            compile_s=f"{compile_s:.1f}",
+            supers=supers, device_setup=device_setup,
+            setup_s=f"{setup_s:.1f}", compile_s=f"{compile_s:.1f}",
             roots=(len(h_cpu.taus0), len(h_cpu.taus1)))
         if args.n == 96 and dims != FLAGSHIP_DIMS:
             raise RuntimeError(f"coarse dims {dims} != {FLAGSHIP_DIMS}")
         geo_args = (geo.bricks, geo.brick_elems)
         box, NB = geo.box, geo.num_bricks
         hvec = ndof + 2 * h_cpu.A0.halo          # haloed vector length
+        if device_setup:
+            # the filter round at the flagship's chunk shape (512 AEs of
+            # (brick+1)^3 = 729 dofs, 64 vectors) beside torch.bmm at the
+            # same shapes
+            eig = measure_eig_throughput(512, (args.brick + 1) ** 3, 64,
+                                         device=dev)
+            log("eig_throughput", **{k: (f"{v:.4f}" if isinstance(v, float)
+                                         else v) for k, v in eig.items()})
+            leave_card(torch)
+
+    # 3b. setup parity ---------------------------------------------------
+    if device_setup:
+        setup_parity(dev, torch, np, flagship_problem, general_problem)
 
     def tent_csr(Rst):
         """The tent restriction as a (bs*NB, n) CSR matrix and its
@@ -1275,10 +1452,20 @@ def main() -> int:
 
     # 7. general --------------------------------------------------------
     if "general" in paths:
-        t0 = time.perf_counter()
-        ml, A_gen, b_gen = general_problem(n=args.general_n)
-        gsetup_s = time.perf_counter() - t0
+        (ml, A_gen, b_gen), gsetup_s = timed_setup(
+            "general", lambda: general_problem(
+                n=args.general_n, device_setup=device_setup, device=dev),
+            dev, torch)
         gdims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+        if args.general_n == 64 and gdims != GENERAL_DIMS and device_setup:
+            # a fault to show per AE: the host setup's cut counts beside
+            # the device setup's, with the eigenvalue nearest theta
+            ml_h = general_problem(n=args.general_n)[0]
+            faults, _ = setup_faults(ml_h, ml, np)
+            raise RuntimeError(f"general coarse dims {gdims} != "
+                               f"{GENERAL_DIMS}; per-AE faults (level, "
+                               f"AE, host, device, eigenvalue nearest "
+                               f"theta): {faults}")
         t0 = time.perf_counter()
         g_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
         gcompile_s = time.perf_counter() - t0
@@ -1290,7 +1477,8 @@ def main() -> int:
 
         formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
         log("general", n=args.general_n, ndof=g_cpu.n, coarse_dims=gdims,
-            setup_s=f"{gsetup_s:.1f}", compile_s=f"{gcompile_s:.1f}",
+            device_setup=device_setup, setup_s=f"{gsetup_s:.1f}",
+            compile_s=f"{gcompile_s:.1f}",
             formats=formats, roots=[len(lv.roots) for lv in g_cpu.levels])
         if args.general_n == 64 and gdims != GENERAL_DIMS:
             raise RuntimeError(f"general coarse dims {gdims} != "
@@ -1324,6 +1512,11 @@ def main() -> int:
                 raise RuntimeError(f"general PCG iterations {it6}/{it8} "
                                    f"above {GENERAL_PCG_MAX[1e-6]}/"
                                    f"{GENERAL_PCG_MAX[1e-8]}")
+            if args.general_n in GENERAL_JAX:
+                jdims, jits = GENERAL_JAX[args.general_n]
+                log("general", jax_record_coarse_dims=jdims,
+                    jax_record_pcg_iters=jits, coarse_dims=gdims,
+                    pcg_iters=[it6, it8])
             results["general"] = gen
         del g, g_cpu
         leave_card(torch)

@@ -9,8 +9,11 @@ packed mid matvec and box contractions.
 
 The host setup (fem/, topology/, setup/, the host solve/ modules,
 utils/, native/) is the port's own copy of the JAX package's host-only
-modules.  The JAX package ``saamge_tpu`` stays the reference; this
-package imports nothing of it and nothing of JAX."""
+modules; its device setup (``device_setup=True``: setup/device_setup.py,
+ops/filtered_eig.py, ops/batched_eig.py) solves the local eigenproblems
+batched on the card, or on the CPU when asked.  The JAX package
+``saamge_tpu`` stays the reference; this package imports nothing of it
+and nothing of JAX."""
 
 from saamge_tpu_torch._device import pin_fp32_precision
 from saamge_tpu_torch.api import (SpectralAMGSolver, entry, flagship_problem,

@@ -45,3 +45,16 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def card_or_cpu(device) -> torch.device:
+    """The device a setup step runs on, as the caller named it: a CUDA
+    device must exist (no card raises; nothing moves to the CPU on its
+    own), the CPU is taken only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for, but there is no CUDA "
+                           "card; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {dev}: expected cuda or cpu")
+    return dev

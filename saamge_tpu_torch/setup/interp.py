@@ -46,6 +46,12 @@ class InterpData:
     # batch and the per-MIS (owner-computes) SVD over the mesh
     # (parallel/dist_setup.py, SEC analog)
     setup_mesh: object = None
+    # the device of the batched eigensolves: a card ("cuda", the
+    # default) or "cpu" when the caller asks for it
+    setup_device: object = "cuda"
+    # AEs per eigensolver route of the batched path ("filter", "eigh",
+    # "host", "host_resolve"), filled by compute_vectors
+    eig_routes: Optional[dict] = None
     scaling_P: bool = False
     # per-AE caches
     cut_evects_arr: Optional[List[np.ndarray]] = None
@@ -110,13 +116,48 @@ def compute_vectors(rels: AggPartRels, interp_data: InterpData, elem_data,
     eig = Eigensolver(use_truncated=interp_data.use_truncated_eigensolver)
     vector_added = False
     if interp_data.use_batched_eigensolver and not transf:
-        # the JAX package runs this branch on its device setup
-        # (setup/device_setup.py, ops/batched_eig.py), which the port has
-        # not ported yet
-        raise NotImplementedError(
-            "device_setup=True needs the device setup pipeline and the "
-            "batched eigensolver (ROADMAP Queue 1 items 2 and 4); use the "
-            "host setup (device_setup=False)")
+        if interp_data.setup_mesh is not None:
+            raise NotImplementedError(
+                "a sharded setup mesh needs the distributed setup "
+                "(ROADMAP Queue 1 item 9)")
+        from saamge_tpu_torch._device import card_or_cpu
+        device = card_or_cpu(interp_data.setup_device)
+        routes = interp_data.eig_routes = {}
+        # uniform-brick fast path: assembly + eigensolves entirely on
+        # device (setup/device_setup.py); falls through when the
+        # agglomeration is not translation invariant
+        if not readapting:
+            from saamge_tpu_torch.setup.device_setup import \
+                uniform_spectral_cut
+            with TIMERS.phase("setup.device_pipeline"):
+                out = uniform_spectral_cut(
+                    elem_data, theta,
+                    use_truncated=interp_data.use_truncated_eigensolver,
+                    device=device, routes=routes)
+            if out is not None:
+                cut, skipped, bdiags, aes = out
+                interp_data.cut_evects_arr = cut
+                interp_data.rhs_matrices_arr = bdiags
+                _suggest_theta(interp_data, theta, skipped)
+                interp_data.svd_eps = 1e-5
+                if aes is not None:
+                    interp_data.AEs_stiffm = aes
+                return False
+        # device path: one padded batched eigensolve per size bucket
+        from saamge_tpu_torch.ops.batched_eig import batched_spectral_cut
+        with TIMERS.phase("setup.ae_assembly"):
+            if not readapting:
+                interp_data.AEs_stiffm = elem_data.build_all_AE_stiff()
+        with TIMERS.phase("setup.local_eigensolves"):
+            cut, skipped, bdiags = batched_spectral_cut(
+                interp_data.AEs_stiffm, theta,
+                use_truncated=interp_data.use_truncated_eigensolver,
+                device=device, routes=routes)
+        interp_data.cut_evects_arr = cut
+        interp_data.rhs_matrices_arr = bdiags
+        _suggest_theta(interp_data, theta, skipped)
+        sa_print(5, "eigensolver: %d batched device solves", rels.nparts)
+        return False
     if not transf:
         # plain setup: CHUNKED assemble -> eigensolve -> sparsify
         # pipeline.  LAPACK releases the GIL, so the independent local
@@ -252,7 +293,7 @@ def sparse_tent_assemble(rels: AggPartRels, interp_data: InterpData,
         if interp_data.setup_mesh is not None:
             raise NotImplementedError(
                 "a sharded setup mesh needs the distributed setup "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 9)")
         tent = build_tentative(
             rels,
             interp_data.cut_evects_arr if use_spectral else None,

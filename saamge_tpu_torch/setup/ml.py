@@ -46,6 +46,9 @@ class MultilevelParameters:
     # device mesh for distributed setup (sharded eigensolve batches and
     # owner-computes MIS-SVD, parallel/dist_setup.py)
     setup_mesh: object = None
+    # the device of the batched setup eigensolves (use_batched_eigensolver):
+    # a card ("cuda") unless the caller asks for "cpu"
+    setup_device: object = "cuda"
     # upper bound on dofs per agglomerate: keeps local eigenproblems
     # bounded (the reference's design invariant, SURVEY §5) and prevents
     # a degenerate final coarsening (nparts=1 -> 1 giant AE whose
@@ -135,7 +138,7 @@ def ml_produce_data(A: sp.csr_matrix, rels: AggPartRels, elem_data,
         A, rels, mlp.get_nu_pro(0), mlp.get_nu_relax(0), mlp.get_theta(0),
         mlp.get_smooth_interp(0), mlp.smooth_drop_tol,
         mlp.use_truncated_eigensolver, mlp.use_batched_eigensolver,
-        setup_mesh=mlp.setup_mesh,
+        setup_mesh=mlp.setup_mesh, setup_device=mlp.setup_device,
         smoother_family=mlp.smoother_poly_family,
         smoother_param=mlp.smoother_poly_param)
     tg.polynomial_coarse_space = mlp.get_polynomial_coarse_space(0)
@@ -181,7 +184,7 @@ def ml_produce_hierarchy_from_level(coarsenings: int, starting_level: int,
             A, rels, mlp.get_nu_pro(i), mlp.get_nu_relax(i), mlp.get_theta(i),
             mlp.get_smooth_interp(i), mlp.smooth_drop_tol,
             mlp.use_truncated_eigensolver, mlp.use_batched_eigensolver,
-            setup_mesh=mlp.setup_mesh,
+            setup_mesh=mlp.setup_mesh, setup_device=mlp.setup_device,
             smoother_family=mlp.smoother_poly_family,
             smoother_param=mlp.smoother_poly_param)
         tg.polynomial_coarse_space = mlp.get_polynomial_coarse_space(i)

@@ -44,7 +44,8 @@ def tg_init_data(A: sp.csr_matrix, rels: AggPartRels, nu_pro: int,
                  smooth_drop_tol: float = 0.0,
                  use_truncated_eigensolver: bool = False,
                  use_batched_eigensolver: bool = False,
-                 setup_mesh=None, smoother_family: str = "sas",
+                 setup_mesh=None, setup_device="cuda",
+                 smoother_family: str = "sas",
                  smoother_param: float = 0.0) -> TGData:
     """tg_init_data (tg.cpp:402).  ``smoother_family``/``smoother_param``
     select the relaxation root family (the reference hardcodes SAS at
@@ -53,6 +54,7 @@ def tg_init_data(A: sp.csr_matrix, rels: AggPartRels, nu_pro: int,
     interp_data.drop_tol = smooth_drop_tol
     interp_data.use_batched_eigensolver = use_batched_eigensolver
     interp_data.setup_mesh = setup_mesh
+    interp_data.setup_device = setup_device
     with TIMERS.phase("setup.dinv"):
         poly_data = smoothers.init_poly_data(A, nu_relax, smoother_family,
                                              smoother_param)
