@@ -5,16 +5,26 @@
     python3 chip_profile.py --paths general     # one path
 
 For each path (flagship, capacity, contract: the n=96 structured
-hierarchies of chip_smoke.py; general: hexkway n=64) one warm-up PCG
-solve at 1e-6, then one PCG solve at 1e-6 under ``torch.profiler``.
-Prints per path the wall time of the traced solve, the device busy time
-(the union of the kernel intervals), the span from the first kernel's
-start to the last one's end, the idle share 1 - busy / span, the kernel
-launches per PCG iteration (one V-cycle and one operator matvec, plus
-the PCG's vector updates), and the device time per kernel name (calls,
-total, mean), largest first; writes
-the same as JSON to ``chiprun_out/profile_<path>.json``.  Exits non-zero
-without a card."""
+hierarchies of chip_smoke.py; general: hexkway n=64) and each PCG loop
+(``eager``: ``graph=False``, every kernel launched from Python and the
+stopping test read each iteration; ``graph``: the default, the prologue
+and each iteration replayed as captured CUDA graphs) one warm-up PCG
+solve at 1e-6 (for the graph loop, the capture), then one PCG solve at
+1e-6 under ``torch.profiler``.  Prints per path and loop the wall time
+of the traced solve, the device busy time (the union of the kernel
+intervals), the span from the first kernel's start to the last one's
+end, the idle share 1 - busy / span, the device kernel records per PCG
+iteration, the host's kernel launches and graph launches per iteration
+(the runtime calls in the trace), and the device time per kernel name
+(calls, total, mean), largest first.  For the graph loop also: the
+median untraced wall time of the solve, the device time of one
+prologue and of one iteration (their graphs replayed back to back,
+CUDA events), and from them the host gap per iteration (wall minus the
+prologue, over the iterations, minus one iteration's device time: the
+event wait, the flag's read and the graph launch).  Peak device bytes
+(allocated and reserved) of an untraced 1e-6 solve of each loop.
+Writes the same as JSON to ``chiprun_out/profile_<path>.json``.  Exits
+non-zero without a card."""
 
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import argparse
 import copy
 import json
 import os
+import statistics
+import subprocess
 import sys
 import time
 
@@ -53,7 +65,39 @@ def device_profile(prof, torch):
     return busy, span, by_name
 
 
-def profile_path(name, h, solve, b, torch, out_dir):
+def host_launches(prof, torch):
+    """(kernel launches, graph launches) the host made in a finished
+    profile: its ``cudaLaunch*`` / ``cuLaunch*`` and graph launch
+    calls."""
+    kernels = graphs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith(("cudaGraphLaunch", "cuGraphLaunch")):
+            graphs += 1
+        elif e.name.startswith(("cudaLaunch", "cuLaunch")):
+            kernels += 1
+    return kernels, graphs
+
+
+def replay_ms(graph, torch, reps=50):
+    """Device time of one replay of ``graph``: ``reps`` replays back to
+    back between two CUDA events."""
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    z.record()
+    z.synchronize()
+    return a.elapsed_time(z) / reps
+
+
+def trace_solve(solve, h, b, torch):
+    """One warm-up solve, then one traced solve: a record of its device
+    time, idle share and launches."""
     from torch.profiler import ProfilerActivity, profile
     solve(h, b)
     torch.cuda.synchronize()
@@ -68,18 +112,80 @@ def profile_path(name, h, solve, b, torch, out_dir):
                        "mean_us": t / c} for k, (c, t) in by_name.items()),
                      key=lambda r: -r["total_us"])
     launches = sum(c for c, _ in by_name.values())
-    rec = {"path": name, "pcg_iters": it, "wall_ms": wall * 1e3,
-           "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
-           "idle_share": 1.0 - busy / span if span else None,
-           "launches": launches, "launches_per_iter": launches / max(it, 1),
-           "kernels": kernels}
-    print(f"[{name}] pcg_iters={it} wall_ms={wall * 1e3:.3f} "
-          f"device_busy_ms={busy / 1e3:.3f} span_ms={span / 1e3:.3f} "
-          f"idle_share={rec['idle_share']:.4f} launches={launches} "
-          f"launches_per_iter={rec['launches_per_iter']:.1f}", flush=True)
-    for k in kernels[:15]:
-        print(f"  {k['total_us']:10.1f} us  {k['calls']:5d} calls  "
-              f"{k['mean_us']:8.2f} us/call  {k['name'][:90]}")
+    host_k, host_g = host_launches(prof, torch)
+    per = max(it, 1)
+    return {"pcg_iters": it, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span if span else None,
+            "launches": launches, "launches_per_iter": launches / per,
+            "host_kernel_launches_per_iter": host_k / per,
+            "host_graph_launches_per_iter": host_g / per,
+            "kernels": kernels}
+
+
+def peak_bytes(solve, h, b, torch):
+    """(peak allocated, peak reserved) device bytes of one solve, the
+    allocator's cache emptied first (a graph's private pool stays: it is
+    reserved, and its temporaries are not allocated at a replay)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solve(h, b)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+
+def host_gap(solve, h, b, torch, runner, draws=5):
+    """(median untraced wall ms of the graph solve, prologue ms, one
+    iteration's device ms, host gap us per iteration)."""
+    walls = []
+    for _ in range(draws):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, it, _ = solve(h, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    pro, body = (replay_ms(g, torch) for g in runner.graphs)
+    return wall, pro, body, ((wall - pro) / max(it, 1) - body) * 1e3
+
+
+def profile_path(name, h, solve, b, torch, out_dir):
+    from saamge_tpu_torch.solve.device_pcg import solve_graphs
+    rec = {"path": name}
+    for loop in ("eager", "graph"):
+        def run(h, b, loop=loop):
+            return solve(h, b, graph=loop == "graph")
+        r = trace_solve(run, h, b, torch)
+        r["peak_allocated_bytes"], r["peak_reserved_bytes"] = \
+            peak_bytes(run, h, b, torch)
+        if loop == "graph":
+            runner = solve_graphs(h).items[
+                ("pcg", b.dtype, b.device, False)][1]
+            (r["untraced_wall_ms"], r["prologue_ms"], r["iteration_ms"],
+             r["host_gap_us_per_iter"]) = host_gap(run, h, b, torch, runner)
+        rec[loop] = r
+        extra = "" if loop == "eager" else (
+            f" untraced_wall_ms={r['untraced_wall_ms']:.3f} "
+            f"prologue_ms={r['prologue_ms']:.4f} "
+            f"iteration_ms={r['iteration_ms']:.4f} "
+            f"host_gap_us_per_iter={r['host_gap_us_per_iter']:.2f}")
+        print(f"[{name} {loop}] pcg_iters={r['pcg_iters']} "
+              f"wall_ms={r['wall_ms']:.3f} "
+              f"device_busy_ms={r['device_busy_ms']:.3f} "
+              f"span_ms={r['span_ms']:.3f} "
+              f"idle_share={r['idle_share']:.4f} "
+              f"launches_per_iter={r['launches_per_iter']:.1f} "
+              f"host_kernel_launches_per_iter="
+              f"{r['host_kernel_launches_per_iter']:.1f} "
+              f"host_graph_launches_per_iter="
+              f"{r['host_graph_launches_per_iter']:.2f} "
+              f"peak_allocated_bytes={r['peak_allocated_bytes']} "
+              f"peak_reserved_bytes={r['peak_reserved_bytes']}" + extra,
+              flush=True)
+        for k in r["kernels"][:15]:
+            print(f"  {k['total_us']:10.1f} us  {k['calls']:5d} calls  "
+                  f"{k['mean_us']:8.2f} us/call  {k['name'][:90]}")
     with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
         json.dump(rec, f, indent=1)
 
@@ -105,17 +211,22 @@ def main() -> int:
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
     print("[device]", torch.cuda.get_device_name(0), torch.__version__,
-          flush=True)
+          torch.version.cuda, smi, flush=True)
 
-    def s_solve(h, b):
-        return struct_pcg_solve(h, b, rel_tol=1e-6)
+    def s_solve(h, b, graph=True):
+        return struct_pcg_solve(h, b, rel_tol=1e-6, graph=graph)
 
-    def g_solve(h, b):
-        return pcg_solve(h, b, rel_tol=1e-6, max_iter=300)
+    def g_solve(h, b, graph=True):
+        return pcg_solve(h, b, rel_tol=1e-6, max_iter=300, graph=graph)
 
     if {"flagship", "capacity", "contract"} & set(paths):
-        ml, b, geo, supers, fac = flagship_problem(n=args.n, mfree=True)
+        ml, b, geo, supers, fac = flagship_problem(
+            n=args.n, mfree=True, device_setup=True, device=dev)
         kw = {"flagship": {},
               "capacity": {"mfree": fac, "hbm_frugal": True,
                            "ainv_dtype": torch.bfloat16},
@@ -131,7 +242,8 @@ def main() -> int:
             del h
             torch.cuda.empty_cache()
     if "general" in paths:
-        ml, _, b = general_problem(n=args.general_n)
+        ml, _, b = general_problem(n=args.general_n, device_setup=True,
+                                   device=dev)
         h = compile_hierarchy(ml, torch.float32, device=dev)
         del ml
         bd = torch.as_tensor(b, dtype=torch.float32, device=dev)

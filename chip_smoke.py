@@ -52,10 +52,21 @@ Phases (one line each; any failure raises and exits non-zero):
                  kernels' own device time per call from one profiler
                  window; `host_us`, the host time per wrapper call; the
                  bound; the library call's times), then
-                 the slice: V-cycle vs the CPU copy, PCG at 1e-6 (launch
-                 counts) and 1e-8, V-cycle time, peak device memory and
-                 buffer bytes; the mid chain must take the resident route
-                 (its tiles, threads and shared bytes are printed)
+                 the slice: the V-cycle (its captured CUDA graph) vs the
+                 CPU copy and vs the eager cycle; PCG at 1e-6 and 1e-8 by
+                 the eager loop (graph=False; its 1e-6 solve gives the
+                 launch counts) and by the graph loop (the default: the
+                 prologue and each iteration replayed as captured
+                 graphs), each with its ms per iteration, V-cycle time,
+                 dofs/s and peak device bytes; the graph loop must take
+                 the eager loop's iterations, give its x bit for bit
+                 (within 1e-5 and one iteration on the general path), run
+                 each port kernel as often as the eager loop launched it
+                 (device kernel records of one profiler window), and do
+                 the same for a second right-hand side through the same
+                 graphs; buffer bytes; the mid chain must take the
+                 resident route (its tiles, threads and shared bytes are
+                 printed)
   5. capacity -- the same for the capacity hierarchy and its kernels
                  (matrix-free pass and chain, packed mid matvec and its
                  residual and root modes); its PCG must launch no kernel
@@ -527,55 +538,173 @@ def ragged_checks(dev, torch, np, k):
         mfree_chain_bit_equal_single_passes=True)
 
 
+# the device kernel of each wrapper, as the profiler names it (the general
+# path's smoother runs the sweep's device code)
+KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
+             "smoother": "wavefront_kernel", "window_R": "window_R_kernel",
+             "window_P": "window_P_kernel", "mid_chain": "mid_chain_kernel",
+             "mfree": "mfree_pass_kernel",
+             "mfree_chain": "mfree_chain_kernel", "midmv": "midmv_kernel",
+             "contract_R": "contract_R_kernel",
+             "contract_P": "contract_P_kernel"}
+
+
+def kernel_records(solve, torch, device_profile, windows=3):
+    """(device kernel records of the port's kernels by kernel name,
+    ``solve()``'s result) of one ``solve()`` in one torch.profiler window
+    (taken again when the profiler delivered no kernel record, up to
+    ``windows`` times)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = solve()
+            torch.cuda.synchronize()
+        _, _, by_name = device_profile(prof, torch)
+        if by_name:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device kernel in "
+                           f"{windows} windows")
+    counts = dict.fromkeys(sorted(set(KERNEL_OF.values())), 0)
+    for name, (calls, _) in by_name.items():
+        for k in counts:
+            if re.search(rf"\b{k}\b", name):
+                counts[k] += calls
+    return counts, result
+
+
+def agree(path, what, got, ref, exact, torch):
+    """Raise unless ``got`` equals ``ref`` bit for bit (``exact``) or
+    within 1e-5 relative; returns the relative error."""
+    _, rel = rel_err(got, ref)
+    if exact and not torch.equal(got, ref):
+        raise RuntimeError(f"{path} {what}: not bit-equal (rel err "
+                           f"{rel:.3e})")
+    if not rel <= 1e-5:
+        raise RuntimeError(f"{path} {what}: rel err {rel:.3e} > 1e-5")
+    return rel
+
+
 def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
-              pcg):
-    """V-cycle on the card vs the CPU copy, PCG at both tolerances (the
-    launch counts of every wrapper during the 1e-6 solve), the true
-    residual, V-cycle time and the peak device memory of the solve."""
+              pcg, device_profile, exact=True):
+    """The V-cycle on the card (its captured graph, the default) vs the
+    CPU copy and vs the eager cycle; PCG at both tolerances by both
+    loops, the eager loop (``graph=False``) first, with the launch
+    counts of every wrapper during its 1e-6 solve; the graph loop's
+    kernel records from the profiler, which must equal those counts;
+    both loops' times and peak device memory; a second right-hand side
+    through the same graphs against its eager solve.  ``exact``: graph
+    and eager must agree bit for bit (the structured paths), else within
+    1e-5 relative and one iteration (the general path's index_add_)."""
     dev = next(h.buffers()).device
     b = torch.as_tensor(b_np, dtype=torch.float32)
     bd = b.to(dev)
-    _, rel = rel_err(vcycle(h, bd).cpu(), vcycle(h_cpu, b))
+    yg = vcycle(h, bd)
+    _, rel = rel_err(yg.cpu(), vcycle(h_cpu, b))
+    v_rel = agree(path, "V-cycle graph vs eager", yg,
+                  vcycle(h, bd, graph=False), exact, torch)
     log(path, vcycle_vs_cpu_rel_err=f"{rel:.3e}", tol=1e-4,
+        vcycle_graph_vs_eager_rel_err=f"{v_rel:.3e}",
         at_s=f"{time.perf_counter() - T0:.1f}")
     if not rel <= 1e-4:
         raise RuntimeError(f"{path}: V-cycle card vs CPU rel err {rel:.3e}")
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)
     for w in wrappers.values():
         w.launches = 0
         for mode in getattr(w, "mode_launches", ()):
             w.mode_launches[mode] = 0
-    t0 = time.perf_counter()
-    _, it6, _ = pcg(h, bd, 1e-6)
+    _, it6, _ = pcg(h, bd, 1e-6, graph=False)
     torch.cuda.synchronize()
-    pcg6_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     modes = {name: dict(w.mode_launches) for name, w in wrappers.items()
              if hasattr(w, "mode_launches")}
     log(path, launches=launches, mode_launches=modes)
-    t0 = time.perf_counter()
-    x8, it8, _ = pcg(h, bd, 1e-8)
-    torch.cuda.synchronize()
-    pcg8_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
+
+    loops = {}
+    for loop in ("eager", "graph"):
+        graph = loop == "graph"
+        t0 = time.perf_counter()
+        _, it6l, _ = pcg(h, bd, 1e-6, graph=graph)
+        torch.cuda.synchronize()
+        pcg6_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        x8, it8, _ = pcg(h, bd, 1e-8, graph=graph)
+        torch.cuda.synchronize()
+        pcg8_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        peak_res = torch.cuda.max_memory_reserved(dev)
+        vms = median_ms(lambda: vcycle(h, bd, graph=graph), torch, draws=20)
+        loops[loop] = {"x8": x8, "it": (it6l, it8), "out": {
+            "pcg_iters_1e6": it6l, "pcg_iters_1e8": it8,
+            # the graph loop's first 1e-6 solve captures its graphs
+            ("pcg_1e6_first_s" if graph else "pcg_1e6_s"): f"{pcg6_s:.3f}",
+            "pcg_1e8_s": f"{pcg8_s:.3f}",
+            "pcg_1e8_ms_per_iter": f"{pcg8_s * 1e3 / max(it8, 1):.4f}",
+            "vcycle_ms": f"{vms:.4f}",
+            "dofs_per_s": f"{h.n / (vms / 1e3):.4e}",
+            "peak_bytes_pcg": peak, "peak_reserved_bytes_pcg": peak_res}}
+        log(path, loop=loop, **loops[loop]["out"])
+    eager, graph = loops["eager"], loops["graph"]
+    it8 = graph["it"][1]
+    if it6 != eager["it"][0]:
+        raise RuntimeError(f"{path}: eager PCG {it6} then {eager['it'][0]} "
+                           "iterations at 1e-6")
+    slack = 0 if exact else 1
+    for tol, a, c in zip(TOLS, eager["it"], graph["it"]):
+        if abs(a - c) > slack:
+            raise RuntimeError(f"{path}: graph PCG {c} vs eager {a} "
+                               f"iterations at {tol}")
+    x_rel = agree(path, "PCG x graph vs eager", graph["x8"], eager["x8"],
+                  exact and eager["it"] == graph["it"], torch)
+
+    # the graph loop's kernels, counted on the device: each must run as
+    # often as the eager loop launched it.  The profiler drops a kernel
+    # record now and then (seen: one of the general path's 36 sweep
+    # records in a window), so a window that disagrees is taken again, up
+    # to three; a graph that really differs disagrees in every window.
+    expect = dict.fromkeys(sorted(set(KERNEL_OF.values())), 0)
+    for name, n in launches.items():
+        expect[KERNEL_OF[name]] += n
+    for window in range(1, 4):
+        records, (_, itp, _) = kernel_records(lambda: pcg(h, bd, 1e-6),
+                                              torch, device_profile)
+        log(path, graph_kernel_records=records, eager_launches=expect,
+            iterations=(itp, it6), window=window)
+        if itp == it6 and records == expect:
+            break
+    if (records != expect if itp == it6 else
+            any((records[k] > 0) != (expect[k] > 0) for k in records)):
+        raise RuntimeError(f"{path}: graph PCG kernel records {records} vs "
+                           f"eager launches {expect} ({itp} vs {it6} "
+                           "iterations)")
+
+    # a second right-hand side through the same graphs
+    b2 = torch.as_tensor(np.random.default_rng(1).standard_normal(h.n),
+                         dtype=torch.float32, device=dev)
+    x2g, it2g, _ = pcg(h, b2, 1e-8)
+    x2e, it2e, _ = pcg(h, b2, 1e-8, graph=False)
+    if abs(it2g - it2e) > slack:
+        raise RuntimeError(f"{path}: second rhs, graph PCG {it2g} vs eager "
+                           f"{it2e} iterations")
+    x2_rel = agree(path, "second rhs x graph vs eager", x2g, x2e,
+                   exact and it2g == it2e, torch)
+    log(path, second_rhs_iters=(it2g, it2e), second_rhs_rel_err=x2_rel,
+        pcg_x_graph_vs_eager_rel_err=f"{x_rel:.3e}")
+
     it6_cpu = pcg(h_cpu, b, 1e-6)[1]
+    x8 = graph["x8"]
     xs = x8.double().cpu().numpy()
     true_res = float(np.linalg.norm(b_np - A_host @ xs)
                      / np.linalg.norm(b_np))
     finite = bool(torch.isfinite(x8).all()) and x8.shape == (h.n,)
-    vms = median_ms(lambda: vcycle(h, bd), torch, draws=20)
-    out = {"pcg_iters_1e6": it6, "pcg_iters_1e8": it8,
-           "pcg_iters_1e6_cpu": it6_cpu, "pcg_1e6_s": f"{pcg6_s:.3f}",
-           "pcg_1e8_s": f"{pcg8_s:.3f}",
-           "pcg_1e8_ms_per_iter": f"{pcg8_s * 1e3 / max(it8, 1):.4f}",
+    out = {"pcg_iters_1e6_cpu": it6_cpu,
            "true_rel_res_1e8": f"{true_res:.3e}",
-           "vcycle_ms": f"{vms:.4f}",
-           "dofs_per_s": f"{h.n / (vms / 1e3):.4e}",
-           "buffer_bytes": buffer_bytes(h), "resident_bytes": resident,
-           "peak_bytes_pcg": peak}
+           "buffer_bytes": buffer_bytes(h), "resident_bytes": resident}
     log(path, **out)
     if not finite:
         raise RuntimeError(f"{path}: PCG solution is not finite or has the "
@@ -585,7 +714,8 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
                            "iterations")
     if not true_res <= 1e-3:
         raise RuntimeError(f"{path}: true relative residual {true_res:.3e}")
-    out.update(launches=launches, modes=modes, it=(it6, it8))
+    out.update(graph["out"], eager=eager["out"], launches=launches,
+               modes=modes, it=(graph["it"][0], it8))
     return out
 
 
@@ -1055,11 +1185,11 @@ def main() -> int:
                 mid_tile_plan=mid_tile_plan, tile_plan=tile_plan,
                 mfree_plan=mfree_plan)
 
-    def s_pcg(h, b, tol):
-        return struct_pcg_solve(h, b, rel_tol=tol)
+    def s_pcg(h, b, tol, graph=True):
+        return struct_pcg_solve(h, b, rel_tol=tol, graph=graph)
 
-    def g_pcg(h, b, tol):
-        return pcg_solve(h, b, rel_tol=tol, max_iter=300)
+    def g_pcg(h, b, tol, graph=True):
+        return pcg_solve(h, b, rel_tol=tol, max_iter=300, graph=graph)
 
     # 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -1266,7 +1396,8 @@ def main() -> int:
         del A0_csr, A1_csr
         if full:
             flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers,
-                             torch, np, struct_vcycle_apply, s_pcg)
+                             torch, np, struct_vcycle_apply, s_pcg,
+                            device_profile)
             check_launches("flagship", flag["launches"],
                            ("stencil", "wavefront", "window_R", "window_P",
                             "mid_chain"),
@@ -1352,7 +1483,8 @@ def main() -> int:
         del A0_csr, chain_args
         if full:
             cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers,
-                            torch, np, struct_vcycle_apply, s_pcg)
+                            torch, np, struct_vcycle_apply, s_pcg,
+                            device_profile)
             check_launches("capacity", cap["launches"],
                            ("mfree", "mfree_chain", "midmv", "window_R",
                             "window_P"),
@@ -1433,7 +1565,8 @@ def main() -> int:
         del boxes, xck, full_rg, sl
         if full:
             con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers,
-                            torch, np, struct_vcycle_apply, s_pcg)
+                            torch, np, struct_vcycle_apply, s_pcg,
+                            device_profile)
             check_launches("contract", con["launches"],
                            ("contract_R", "contract_P", "stencil",
                             "wavefront", "mid_chain"),
@@ -1503,7 +1636,8 @@ def main() -> int:
         del gx, gb, G0, lv0
         if full:
             gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers,
-                            torch, np, vcycle_apply, g_pcg)
+                            torch, np, vcycle_apply, g_pcg,
+                            device_profile, exact=False)
             check_launches("general", gen["launches"], ("smoother", "stencil"),
                            structured_only)
             it6, it8 = gen["it"]

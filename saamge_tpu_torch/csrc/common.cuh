@@ -1,11 +1,19 @@
 // Shared pieces of the port's Hopper kernels: value loads (single and
-// paired) that widen bf16 to f32, the small kernel-argument structs, and
-// the cooperative launch used by the chained (multi-level) kernels.
+// paired) that widen bf16 to f32, the small kernel-argument structs, the
+// once-per-kernel shared-memory limit, and the cooperative launch used by
+// the chained (multi-level) kernels.  Every launcher is capturable in a
+// CUDA graph: it launches on the stream it is given and, after a kernel's
+// first use, makes no attribute or occupancy call.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 #define SAAMGE_MAX_DIAGS 64
 #define SAAMGE_MAX_ROOTS 32
@@ -129,28 +137,101 @@ __device__ __forceinline__ float* level_buf(int r, int k, float* out,
   return ((k - r) % 2 == 0) ? out : tmp;
 }
 
+// Launch-time state that is a property of the kernel and the card, not of
+// a call: the dynamic shared-memory limit a kernel was given and its
+// cooperative capacity.  Both are set or queried at a kernel's first use
+// (an eager launch, before any CUDA-graph capture) and read from these
+// tables after, so that a launch being captured makes no attribute or
+// occupancy call, and a replay, which re-checks nothing, runs the grid
+// that was checked when it was recorded.
+struct LaunchKey {
+  const void* func;
+  int dev, threads;
+  size_t smem;
+  bool operator<(const LaunchKey& o) const {
+    return std::tie(func, dev, threads, smem) <
+           std::tie(o.func, o.dev, o.threads, o.smem);
+  }
+};
+
+static inline std::mutex& launch_table_lock() {
+  static std::mutex m;
+  return m;
+}
+
+// Raise `func`'s dynamic shared-memory limit on the current card to at
+// least `smem` (once per kernel and card; a larger later request raises
+// it again).
+static inline cudaError_t smem_limit(const void* func, size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::map<std::pair<const void*, int>, size_t> limits;
+  std::lock_guard<std::mutex> guard(launch_table_lock());
+  auto it = limits.find({func, dev});
+  if (it != limits.end() && it->second >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  limits[{func, dev}] = smem;
+  return cudaSuccess;
+}
+
 // Blocks of `func` (`threads` threads, `smem` dynamic shared bytes) that
 // can be resident at once on the whole card: the occupancy query times the
-// SMs.  Sets the kernel's dynamic shared-memory limit to `smem`.
+// SMs, made once per (kernel, card, threads, smem).
 static inline cudaError_t cooperative_capacity(const void* func, int threads,
                                                size_t smem, long* capacity) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  static std::map<LaunchKey, long> known;
+  const LaunchKey key{func, dev, threads, smem};
+  {
+    std::lock_guard<std::mutex> guard(launch_table_lock());
+    auto it = known.find(key);
+    if (it != known.end()) {
+      *capacity = it->second;
+      return cudaSuccess;
+    }
+  }
   int coop = 0, sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  e = smem_limit(func, smem);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, func, threads,
                                                     smem);
   if (e != cudaSuccess) return e;
   *capacity = (long)per_sm * sms;
+  std::lock_guard<std::mutex> guard(launch_table_lock());
+  known[key] = *capacity;
   return cudaSuccess;
+}
+
+// One cooperative launch through cudaLaunchKernelExC with the cooperative
+// launch attribute: the same launch as cudaLaunchCooperativeKernel, in
+// the form that stream capture records as a cooperative kernel node.
+static inline cudaError_t launch_cooperative_ex(const void* func, long grid,
+                                                int threads, size_t smem,
+                                                void** args,
+                                                cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelExC(&cfg, func, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // Launch `func` cooperatively with exactly `grid` blocks, so that
@@ -164,10 +245,7 @@ static inline cudaError_t launch_cooperative_grid(const void* func,
   cudaError_t e = cooperative_capacity(func, threads, smem, &capacity);
   if (e != cudaSuccess) return e;
   if (grid < 1 || grid > capacity) return cudaErrorCooperativeLaunchTooLarge;
-  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid), dim3(threads),
-                                  args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_cooperative_ex(func, grid, threads, smem, args, stream);
 }
 
 // Launch `func` cooperatively with as many blocks as can be resident at
@@ -185,8 +263,5 @@ static inline cudaError_t launch_cooperative(const void* func, long work,
   long grid = (work + threads - 1) / threads;
   if (grid > capacity) grid = capacity;
   if (grid < 1) grid = 1;
-  e = cudaLaunchCooperativeKernel(func, dim3((unsigned)grid), dim3(threads),
-                                  args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_cooperative_ex(func, grid, threads, smem, args, stream);
 }

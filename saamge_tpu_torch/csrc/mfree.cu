@@ -438,9 +438,7 @@ static cudaError_t launch_pass_w(const V* c, const V* m, const ElemMatrix& K,
                                  const float* b, const float* dinv,
                                  float inv_tau, float* y, cudaStream_t s) {
   const void* f = (const void*)mfree_pass_kernel<V, MODE, XW>;
-  cudaError_t e =
-      cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  cudaError_t e = smem_limit(f, smem);
   if (e != cudaSuccess) return e;
   mfree_pass_kernel<V, MODE, XW>
       <<<G.tiles * G.chunks, MFREE_THREADS, smem, s>>>(c, m, K, G, x, b, dinv,

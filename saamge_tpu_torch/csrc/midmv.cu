@@ -212,9 +212,7 @@ static cudaError_t launch_midmv_as(const V* packed, const MidGeom& g,
                                    const float* b, const float* dinv,
                                    float inv_tau, int mode, float* y,
                                    const int* plan, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      midmv_kernel<V, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      plan[3]);
+  cudaError_t e = smem_limit((const void*)midmv_kernel<V, VEC>, plan[3]);
   if (e != cudaSuccess) return e;
   midmv_kernel<V, VEC><<<dim3(plan[1], plan[2]), plan[0], plan[3], stream>>>(
       packed, g, st, x, b, dinv, inv_tau, mode, y);

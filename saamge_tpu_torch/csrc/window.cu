@@ -325,9 +325,8 @@ static cudaError_t launch_window_R(const V* Rst, const WinGeom& g,
                                    const int* plan, long smem,
                                    const float* r, float* yc,
                                    cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      window_R_kernel<V, VEC, ZE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = smem_limit((const void*)window_R_kernel<V, VEC, ZE>,
+                             (size_t)smem);
   if (e != cudaSuccess) return e;
   window_R_kernel<V, VEC, ZE><<<dim3(plan[1], plan[2]), plan[0], smem, s>>>(
       Rst, g, plan[4], plan[5], r, yc);

@@ -39,7 +39,7 @@ from saamge_tpu_torch.ops.blockrow import BlockRow, TransposedBlockRow
 from saamge_tpu_torch.ops.smoother import inv_taus_f32, smoother_h
 from saamge_tpu_torch.ops.sparse import DIA, ELL, device_matrix, dia_spmv
 from saamge_tpu_torch.ops.stencil import stencil_h
-from saamge_tpu_torch.solve.device_pcg import pcg
+from saamge_tpu_torch.solve.device_pcg import graphed, pcg
 
 
 def _cast_floats(values, dtype) -> tuple:
@@ -237,15 +237,21 @@ def precond(h: CompiledHierarchy, r: torch.Tensor) -> torch.Tensor:
     return vcycle(h, r, torch.zeros_like(r))
 
 
-def vcycle_apply(h: CompiledHierarchy, b: torch.Tensor) -> torch.Tensor:
-    """One preconditioner application."""
-    return precond(h, b)
+def vcycle_apply(h: CompiledHierarchy, b: torch.Tensor,
+                 graph: bool = True) -> torch.Tensor:
+    """One preconditioner application; on the card a replay of the
+    hierarchy's captured V-cycle graph unless ``graph=False``
+    (solve/device_pcg.py)."""
+    return graphed(h, lambda r: precond(h, r), b, graph)
 
 
 def pcg_solve(h: CompiledHierarchy, b: torch.Tensor,
               x0: Optional[torch.Tensor] = None, rel_tol: float = 1e-6,
-              abs_tol: float = 0.0, max_iter: int = 200):
+              abs_tol: float = 0.0, max_iter: int = 200, graph: bool = True):
     """PCG (solve/device_pcg.py) preconditioned by one V-cycle, with the
-    finest operator; returns (x, iterations, final (B r, r))."""
-    return pcg(h.levels[0].matvec, lambda r: precond(h, r), b, x0=x0,
-               rel_tol=rel_tol, abs_tol=abs_tol, max_iter=max_iter)
+    finest operator; returns (x, iterations, final (B r, r)).  On the
+    card the prologue and each iteration replay captured CUDA graphs
+    unless ``graph=False`` asks for the eager loop."""
+    return pcg(h, h.levels[0].matvec, lambda r: precond(h, r), b, x0=x0,
+               rel_tol=rel_tol, abs_tol=abs_tol, max_iter=max_iter,
+               graph=graph)

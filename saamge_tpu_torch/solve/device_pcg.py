@@ -1,43 +1,230 @@
-"""The port's PCG loop, shared by the structured and the general path.
+"""The port's PCG loop, shared by the structured and the general path,
+and the CUDA graphs that run it and the V-cycle on the card.
 
 MFEM CGSolver semantics, as the JAX package's ``pcg_solve`` and
 ``struct_pcg_solve``: convergence when (B r, r) <= max(rel_tol^2
-(B r0, r0), abs_tol^2).  The loop is Python: the stopping test is read
-on the host once per iteration (one device sync per iteration), where
-the JAX package runs it on the device (lax.while_loop); capturing it in
-a CUDA graph is later work."""
+(B r0, r0), abs_tol^2).
+
+``PCGRunner`` owns the loop's state as static tensors on the hierarchy's
+device: the vectors b, x, r, d and Ad, the 0-d scalars nom, lim, rel_tol
+and abs_tol (a new tolerance is a new value, not a new capture, as the
+JAX package's device scalars), and the flag go = nom > lim.  Two
+functions rewrite that state in place: ``prologue`` (z = M r0, nom0 =
+z . r0, lim, d = z, Ad = A z) and ``body``, one iteration in the op
+order of the JAX ``_struct_pcg`` / ``_pcg_solve`` body.
+
+On the card the two are captured once each in a ``torch.cuda.CUDAGraph``
+(after a warm-up on a side stream, which builds the kernels and does
+each launcher's first-use attribute and occupancy queries), the JAX
+package's jitted ``lax.while_loop`` in PyTorch's terms.  A solve copies
+b (and x0) and the tolerances into the state, replays the prologue, and
+replays the body while the flag says go: the graph computes the flag,
+which is copied to a pinned host flag and read after an event, one small
+read per iteration.  ``it`` counts replays on the host and ``max_iter``
+caps it there, so the iteration count is the while_loop's exactly.  On
+the CPU the same prologue and body run eagerly; ``graph=False`` asks for
+that eager loop on the card.  Nothing else chooses it: a capture that
+fails raises.
+
+``GraphedApply`` is one V-cycle the same way: a static input buffer, the
+function captured once, the output cloned on return.
+
+Each hierarchy keeps its runners and V-cycle graph in ``solve_graphs(h)``,
+remade when its buffers have moved (``.to``) and left behind by
+``copy.deepcopy``.  Graph temporaries come from the graphs' private
+memory pools (one shared by a runner's two graphs, one for the V-cycle).
+
+Launch counters: the kernels' wrappers count a launch when they run, so
+an eager solve counts every launch, and a graph solve only those of the
+warm-up and the capture (a replay runs no Python).  A run that counts
+the kernels of a replay reads the profiler's kernel records."""
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import torch
 
 
-def pcg(matvec: Callable, precond: Callable, b: torch.Tensor,
-        x0: Optional[torch.Tensor] = None, rel_tol: float = 1e-6,
-        abs_tol: float = 0.0, max_iter: int = 200):
-    """Returns (x, iterations, final (B r, r))."""
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - matvec(x0)
-    z = precond(r)
-    nom = torch.dot(z, r)
-    lim = torch.clamp(nom * rel_tol * rel_tol, min=abs_tol * abs_tol)
-    d = z
-    Ad = matvec(d)
-    it = 0
-    while it < max_iter and bool(nom > lim):
+def _warm_up(*fns) -> None:
+    """Run ``fns`` once in order on a side stream, the warm-up that
+    ``torch.cuda.graph`` asks for before a capture."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    cur.wait_stream(side)
+
+
+class PCGRunner:
+    """The PCG loop of one operator and preconditioner on static state;
+    ``with_x0`` runs the prologue from the initial guess in ``x``."""
+
+    def __init__(self, matvec: Callable, precond: Callable,
+                 like: torch.Tensor, with_x0: bool = False):
+        self.matvec, self.precond, self.with_x0 = matvec, precond, with_x0
+        dt, dev = like.dtype, like.device
+        self.b, self.x, self.r, self.d, self.Ad = (
+            torch.zeros(like.shape, dtype=dt, device=dev) for _ in range(5))
+        self.nom, self.lim, self.rel_tol, self.abs_tol = (
+            torch.zeros((), dtype=dt, device=dev) for _ in range(4))
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.graphs = None        # (prologue, body) once captured
+        if dev.type == "cuda":
+            self.go_host = torch.zeros((), dtype=torch.bool,
+                                       pin_memory=True)
+            self.go_ready = torch.cuda.Event()
+
+    def prologue(self) -> None:
+        if self.with_x0:
+            r = self.b - self.matvec(self.x)
+        else:
+            self.x.zero_()
+            r = self.b
+        z = self.precond(r)
+        nom = torch.dot(z, r)
+        self.r.copy_(r)
+        self.d.copy_(z)
+        self.Ad.copy_(self.matvec(z))
+        self.nom.copy_(nom)
+        torch.maximum(nom * self.rel_tol * self.rel_tol,
+                      self.abs_tol * self.abs_tol, out=self.lim)
+        torch.gt(self.nom, self.lim, out=self.go)
+
+    def body(self) -> None:
+        x, r, d, Ad, nom = self.x, self.r, self.d, self.Ad, self.nom
         alpha = nom / torch.dot(d, Ad)
-        x = x + alpha * d
-        r = r - alpha * Ad
-        z = precond(r)
+        x.add_(alpha * d)
+        r.sub_(alpha * Ad)
+        z = self.precond(r)
         betanom = torch.dot(r, z)
-        d = z + (betanom / nom) * d
-        Ad = matvec(d)
-        nom = betanom
-        it += 1
-    return x, it, nom
+        torch.add(z, (betanom / nom) * d, out=d)
+        Ad.copy_(self.matvec(d))
+        nom.copy_(betanom)
+        torch.gt(nom, self.lim, out=self.go)
+
+    def _load(self, b, x0, rel_tol: float, abs_tol: float) -> None:
+        self.b.copy_(b)
+        if self.with_x0:
+            self.x.copy_(x0)
+        self.rel_tol.fill_(rel_tol)
+        self.abs_tol.fill_(abs_tol)
+
+    def _capture(self):
+        """Warm up on a side stream, then capture the prologue and the
+        body (one memory pool, captured and replayed in that order)."""
+        _warm_up(self.prologue, self.body)
+        pro, body = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(pro):
+            self.prologue()
+        with torch.cuda.graph(body, pool=pro.pool()):
+            self.body()
+        return pro, body
+
+    def _going(self) -> bool:
+        """The flag go, read on the host after the work that sets it."""
+        if self.go.device.type != "cuda":
+            return bool(self.go)
+        self.go_host.copy_(self.go, non_blocking=True)
+        self.go_ready.record()
+        self.go_ready.synchronize()
+        return bool(self.go_host)
+
+    def solve(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+              rel_tol: float = 1e-6, abs_tol: float = 0.0,
+              max_iter: int = 200, graph: bool = True):
+        """Returns (x, iterations, final (B r, r)); x and the scalar are
+        copies, so the next solve leaves them as they are."""
+        on_card = self.b.device.type == "cuda"
+        with torch.cuda.device(self.b.device) if on_card else nullcontext():
+            self._load(b, x0, rel_tol, abs_tol)
+            if graph and on_card:
+                if self.graphs is None:
+                    self.graphs = self._capture()
+                    self._load(b, x0, rel_tol, abs_tol)
+                prologue, body = (g.replay for g in self.graphs)
+            else:
+                prologue, body = self.prologue, self.body
+            prologue()
+            it = 0
+            while it < max_iter and self._going():
+                body()
+                it += 1
+            return self.x.clone(), it, self.nom.clone()
+
+
+class GraphedApply:
+    """y = fn(x) for x of one shape and dtype, captured once in a CUDA
+    graph on ``like``'s card: a static input buffer, replayed, the
+    output cloned on return."""
+
+    def __init__(self, fn: Callable, like: torch.Tensor):
+        self.fn = fn
+        self.x = torch.zeros(like.shape, dtype=like.dtype,
+                             device=like.device)
+        self.graph = self.y = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(self.x.device):
+            self.x.copy_(x)
+            if self.graph is None:
+                _warm_up(lambda: self.fn(self.x))
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self.y = self.fn(self.x)
+                self.graph = graph
+            self.graph.replay()
+            return self.y.clone()
+
+
+class SolveGraphs:
+    """A hierarchy's runners and graphs by key, each kept with the
+    addresses of the hierarchy's buffers when it was made and remade
+    when they differ.  ``copy.deepcopy`` gives an empty table."""
+
+    def __init__(self):
+        self.items = {}
+
+    def __deepcopy__(self, memo):
+        return SolveGraphs()
+
+    def get(self, key, h: torch.nn.Module, make: Callable):
+        where = tuple((t.device, t.data_ptr()) for t in h.buffers())
+        hit = self.items.get(key)
+        if hit is None or hit[0] != where:
+            self.items.pop(key, None)
+            hit = (where, make())
+            self.items[key] = hit
+        return hit[1]
+
+
+def solve_graphs(h: torch.nn.Module) -> SolveGraphs:
+    table = h.__dict__.get("_solve_graphs")
+    if table is None:
+        table = h.__dict__["_solve_graphs"] = SolveGraphs()
+    return table
+
+
+def pcg(h: torch.nn.Module, matvec: Callable, precond: Callable,
+        b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+        rel_tol: float = 1e-6, abs_tol: float = 0.0, max_iter: int = 200,
+        graph: bool = True):
+    """PCG on hierarchy ``h``'s cached runner for b's dtype and device
+    (and x0 or none); returns (x, iterations, final (B r, r))."""
+    key = ("pcg", b.dtype, b.device, x0 is not None)
+    runner = solve_graphs(h).get(
+        key, h, lambda: PCGRunner(matvec, precond, b, x0 is not None))
+    return runner.solve(b, x0, rel_tol, abs_tol, max_iter, graph)
+
+
+def graphed(h: torch.nn.Module, fn: Callable, b: torch.Tensor,
+            graph: bool = True) -> torch.Tensor:
+    """fn(b): on the card by default through ``h``'s cached graph of
+    ``fn`` for b's dtype, eagerly on the CPU or with ``graph=False``."""
+    if not (graph and b.device.type == "cuda"):
+        return fn(b)
+    key = ("graphed", b.dtype, b.device)
+    return solve_graphs(h).get(key, h, lambda: GraphedApply(fn, b))(b)

@@ -60,7 +60,7 @@ from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.ops.wavefront import wavefront_smooth
 from saamge_tpu_torch.ops.window import slot_ranges, window_P, window_R
-from saamge_tpu_torch.solve.device_pcg import pcg
+from saamge_tpu_torch.solve.device_pcg import graphed, pcg
 from saamge_tpu_torch.utils.logging import sa_print
 
 
@@ -567,14 +567,19 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
 # solves
 
 
-def struct_vcycle_apply(h: StructuredHierarchy, b: torch.Tensor):
-    return h.vcycle(b.to(torch.float32))
+def struct_vcycle_apply(h: StructuredHierarchy, b: torch.Tensor,
+                        graph: bool = True):
+    """One V-cycle; on the card a replay of the hierarchy's captured
+    V-cycle graph unless ``graph=False`` (solve/device_pcg.py)."""
+    return graphed(h, h.vcycle, b.to(torch.float32), graph)
 
 
 def struct_pcg_solve(h: StructuredHierarchy, b: torch.Tensor,
                      rel_tol: float = 1e-6, abs_tol: float = 0.0,
-                     max_iter: int = 200):
+                     max_iter: int = 200, graph: bool = True):
     """PCG (solve/device_pcg.py) preconditioned by one V-cycle, with the
-    f32 PCG operator; returns (x, iterations, final (B r, r))."""
-    return pcg(h.matvec0, h.vcycle, b.to(torch.float32), rel_tol=rel_tol,
-               abs_tol=abs_tol, max_iter=max_iter)
+    f32 PCG operator; returns (x, iterations, final (B r, r)).  On the
+    card the prologue and each iteration replay captured CUDA graphs
+    unless ``graph=False`` asks for the eager loop."""
+    return pcg(h, h.matvec0, h.vcycle, b.to(torch.float32), rel_tol=rel_tol,
+               abs_tol=abs_tol, max_iter=max_iter, graph=graph)
