@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device-time profile of the port's solve paths on one NVIDIA card.
 
-    python3 chip_profile.py                     # all four paths
+    python3 chip_profile.py                     # all five paths
     python3 chip_profile.py --paths general     # one path
 
-For each path (flagship, capacity, contract: the n=96 structured
-hierarchies of chip_smoke.py; general: hexkway n=64) and each PCG loop
+For each path (flagship, capacity, contract, twolevel: the n=96
+structured hierarchies of chip_smoke.py, the two-level one compiled on
+the card; general: hexkway n=64) and each PCG loop
 (``eager``: ``graph=False``, every kernel launched from Python and the
 stopping test read each iteration; ``graph``: the default, the prologue
 and each iteration replayed as captured CUDA graphs) one warm-up PCG
@@ -37,7 +38,7 @@ import subprocess
 import sys
 import time
 
-PATHS = ("flagship", "capacity", "contract", "general")
+PATHS = ("flagship", "capacity", "contract", "general", "twolevel")
 
 
 def device_profile(prof, torch):
@@ -224,7 +225,7 @@ def main() -> int:
     def g_solve(h, b, graph=True):
         return pcg_solve(h, b, rel_tol=1e-6, max_iter=300, graph=graph)
 
-    if {"flagship", "capacity", "contract"} & set(paths):
+    if {"flagship", "capacity", "contract", "twolevel"} & set(paths):
         ml, b, geo, supers, fac = flagship_problem(
             n=args.n, mfree=True, device_setup=True, device=dev)
         kw = {"flagship": {},
@@ -234,6 +235,14 @@ def main() -> int:
                            "use_pallas_contract": True}}
         cpu = {p: compile_structured(ml, geo, supers, device="cpu", **kw[p])
                for p in kw if p in paths}
+        if "twolevel" in paths:
+            # level 0 alone: the coarsest inverse (the flagship's mid
+            # level) is factored on the card
+            ml2 = copy.copy(ml)
+            ml2.levels = ml.levels[:1]
+            cpu["twolevel"] = compile_structured(ml2, geo,
+                                                 device=dev).to("cpu")
+            del ml2
         del ml
         bd = torch.as_tensor(b, dtype=torch.float32, device=dev)
         for p, h_cpu in cpu.items():

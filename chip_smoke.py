@@ -38,9 +38,9 @@ Phases (one line each; any failure raises and exits non-zero):
                  setup's peak device bytes, allow_tf32, and the filter
                  round's GFLOP/s beside torch.bmm at (512, 729, 64); from
                  it the flagship hierarchy, the full-capacity one (mfree +
-                 hbm_frugal + bf16 coarsest inverse) and the box-
-                 contraction one (f32 tent blocks, use_pallas_contract),
-                 each on the CPU
+                 hbm_frugal + bf16 coarsest inverse), the box-
+                 contraction one (f32 tent blocks, use_pallas_contract)
+                 and those of phase 9, each on the CPU
   3b. parity  -- the host and the device setup of a small flagship (n=32,
                  superbricks (2,2,2): the uniform pipeline) and a small
                  hexkway (n=24: the generic batched eigensolver): per AE
@@ -91,13 +91,34 @@ Phases (one line each; any failure raises and exits non-zero):
                  smoother kernel,
                  then the slice; its PCG launches the smoother and the
                  stencil and no structured-only kernel
+  8. twolevel -- the flagship setup's level 0 alone (a two-level
+                 hierarchy: its coarsest level is the flagship's mid
+                 level, 18,917 dofs at n=96), compiled on the card in
+                 phase 3 (3c: the coarsest inverse by the card's f32
+                 Cholesky, its seconds and the compile's peak device
+                 bytes, against the f64 inverse rounded to f32), then its
+                 slice; its PCG launches no mid-level kernel, and takes
+                 within one iteration of the same hierarchy with the
+                 f32-rounded f64 inverse
+  9. options  -- three more hierarchies of the flagship setup, each
+                 through the slice: the dense coarsest restriction R1
+                 (``super_bricks=None``: the flagship's kernels, its
+                 iterations exactly and its V-cycle within 1e-4), the
+                 dense mid operator (``mid_format='dense'``: a bf16-in /
+                 f32-out cuBLAS product, no mid kernel; the CPU copy
+                 checks one V-cycle, not a PCG) and the packed mid passes
+                 (``mid_resident=False``: midmv root and residual, no mid
+                 chain), the last two within one iteration of the
+                 flagship's
 Each hierarchy leaves the card before the next arrives, so each path's
-peak device memory is its own.  The last two lines are the kernels' JSON
+peak device memory is its own, but for ~69 MB a path that stays
+allocated after it (PERF.md §7).  The last two lines are the kernels' JSON
 record and the result line {"ok": true, "device": {...}}.
 
 Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
-``--paths`` runs some of flagship, capacity, contract and general;
+``--paths`` runs some of flagship, capacity, contract, general,
+twolevel and options;
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
 no PCG); ``--host-setup`` builds both paths' hierarchies with the host
 setup (device_setup=False; no phase 3b), for the host-against-device
@@ -129,7 +150,10 @@ GENERAL_PCG_MAX = {1e-6: 18, 1e-8: 22}  # host f64 PCG 17 / 21, plus 1
 # coarse dims and PCG iterations at 1e-6 / 1e-8
 GENERAL_JAX = {100: ([61300, 1984], [23, 30])}
 TOLS = (1e-6, 1e-8)
-PATHS = ("flagship", "capacity", "contract", "general")
+PATHS = ("flagship", "capacity", "contract", "general", "twolevel",
+         "options")
+# the paths built on the flagship setup
+STRUCTURED = ("flagship", "capacity", "contract", "twolevel", "options")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_S = 67e12          # H100 SXM f32 outside the tensor cores
 T0 = time.perf_counter()
@@ -549,15 +573,23 @@ KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
              "contract_P": "contract_P_kernel"}
 
 
-def kernel_records(solve, torch, device_profile, windows=3):
+def kernel_records(solve, torch, device_profile, windows=3, lead=1000):
     """(device kernel records of the port's kernels by kernel name,
     ``solve()``'s result) of one ``solve()`` in one torch.profiler window
     (taken again when the profiler delivered no kernel record, up to
-    ``windows`` times)."""
+    ``windows`` times).  The profiler can lose the first device records
+    of a window, more of them the more the process has profiled (seen: a
+    twolevel window that missed the solve's first sweep and window R in
+    five windows in a row, its last kernels all there), so each window
+    opens with ``lead`` small kernels of its own that no count reads."""
     from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device=torch.cuda.current_device())
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
             result = solve()
             torch.cuda.synchronize()
         _, _, by_name = device_profile(prof, torch)
@@ -587,16 +619,20 @@ def agree(path, what, got, ref, exact, torch):
 
 
 def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
-              pcg, device_profile, exact=True):
+              pcg, device_profile, exact=True, cpu_pcg=True, cpu_tol=1e-4):
     """The V-cycle on the card (its captured graph, the default) vs the
     CPU copy and vs the eager cycle; PCG at both tolerances by both
     loops, the eager loop (``graph=False``) first, with the launch
     counts of every wrapper during its 1e-6 solve; the graph loop's
     kernel records from the profiler, which must equal those counts;
     both loops' times and peak device memory; a second right-hand side
-    through the same graphs against its eager solve.  ``exact``: graph
-    and eager must agree bit for bit (the structured paths), else within
-    1e-5 relative and one iteration (the general path's index_add_)."""
+    through the same graphs against its eager solve; the CPU copy's 1e-6
+    PCG within one iteration (unless ``cpu_pcg`` is False).  The card's
+    V-cycle must agree with the CPU copy's within ``cpu_tol``.  ``exact``:
+    graph and eager must agree bit for bit (the structured paths), else
+    within 1e-5 relative and one iteration (the general path's
+    index_add_).  The result holds the card's V-cycle (on the CPU) as
+    ``vcycle``."""
     dev = next(h.buffers()).device
     b = torch.as_tensor(b_np, dtype=torch.float32)
     bd = b.to(dev)
@@ -604,10 +640,10 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     _, rel = rel_err(yg.cpu(), vcycle(h_cpu, b))
     v_rel = agree(path, "V-cycle graph vs eager", yg,
                   vcycle(h, bd, graph=False), exact, torch)
-    log(path, vcycle_vs_cpu_rel_err=f"{rel:.3e}", tol=1e-4,
+    log(path, vcycle_vs_cpu_rel_err=f"{rel:.3e}", tol=cpu_tol,
         vcycle_graph_vs_eager_rel_err=f"{v_rel:.3e}",
         at_s=f"{time.perf_counter() - T0:.1f}")
-    if not rel <= 1e-4:
+    if not rel <= cpu_tol:
         raise RuntimeError(f"{path}: V-cycle card vs CPU rel err {rel:.3e}")
 
     torch.cuda.synchronize()
@@ -663,14 +699,15 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
                   exact and eager["it"] == graph["it"], torch)
 
     # the graph loop's kernels, counted on the device: each must run as
-    # often as the eager loop launched it.  The profiler drops a kernel
-    # record now and then (seen: one of the general path's 36 sweep
-    # records in a window), so a window that disagrees is taken again, up
-    # to three; a graph that really differs disagrees in every window.
+    # often as the eager loop launched it.  The profiler drops device
+    # records now and then (seen: six of the contract path's 38 sweep
+    # records in one window; beside the loss at a window's start that
+    # kernel_records absorbs), so a window that disagrees is taken again,
+    # up to five; a graph that really differs disagrees in every window.
     expect = dict.fromkeys(sorted(set(KERNEL_OF.values())), 0)
     for name, n in launches.items():
         expect[KERNEL_OF[name]] += n
-    for window in range(1, 4):
+    for window in range(1, 6):
         records, (_, itp, _) = kernel_records(lambda: pcg(h, bd, 1e-6),
                                               torch, device_profile)
         log(path, graph_kernel_records=records, eager_launches=expect,
@@ -696,7 +733,7 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     log(path, second_rhs_iters=(it2g, it2e), second_rhs_rel_err=x2_rel,
         pcg_x_graph_vs_eager_rel_err=f"{x_rel:.3e}")
 
-    it6_cpu = pcg(h_cpu, b, 1e-6)[1]
+    it6_cpu = pcg(h_cpu, b, 1e-6)[1] if cpu_pcg else None
     x8 = graph["x8"]
     xs = x8.double().cpu().numpy()
     true_res = float(np.linalg.norm(b_np - A_host @ xs)
@@ -709,13 +746,13 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     if not finite:
         raise RuntimeError(f"{path}: PCG solution is not finite or has the "
                            "wrong shape")
-    if abs(it6 - it6_cpu) > 1:
+    if cpu_pcg and abs(it6 - it6_cpu) > 1:
         raise RuntimeError(f"{path}: card PCG {it6} vs CPU PCG {it6_cpu} "
                            "iterations")
     if not true_res <= 1e-3:
         raise RuntimeError(f"{path}: true relative residual {true_res:.3e}")
     out.update(graph["out"], eager=eager["out"], launches=launches,
-               modes=modes, it=(graph["it"][0], it8))
+               modes=modes, it=(graph["it"][0], it8), vcycle=yg.cpu())
     return out
 
 
@@ -758,6 +795,52 @@ def check_launches(path, launches, must, never):
     if low or high:
         raise RuntimeError(f"{path} PCG launches: not launched {low}, "
                            f"launched but must not be {high}")
+
+
+def twolevel_compile(ml, geo, dev, torch, np, compile_structured):
+    """Phase 3c: the two-level hierarchy of the flagship setup (its level
+    0 only: the coarsest level is the flagship's mid level, 18,917 dofs at
+    n=96), compiled on the card, whose coarsest inverse then takes the
+    Cholesky route; the inverse's seconds (timer
+    ``compile.coarsest_inverse``) and the compile's peak device bytes.
+    Beside it the JAX rounding of the small-size route: the f64 inverse
+    (Cholesky and cholesky_inverse in f64 on the card) rounded to f32.
+    Returns (the hierarchy, moved to the CPU; the f32-rounded f64
+    inverse, on the CPU)."""
+    from saamge_tpu_torch.utils.logging import TIMERS
+    ml2 = copy.copy(ml)
+    ml2.levels = ml.levels[:1]
+    TIMERS.totals.pop("compile.coarsest_inverse", None)
+    leave_card(torch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    h2 = compile_structured(ml2, geo, device=dev)
+    torch.cuda.synchronize(dev)
+    compile_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    inv_s = TIMERS.totals.get("compile.coarsest_inverse")
+    nc = int(h2.Ainv.shape[0])
+    if inv_s is None:
+        raise RuntimeError(f"twolevel: the coarsest inverse ({nc} dofs) did "
+                           "not take the card's Cholesky route")
+    t0 = time.perf_counter()
+    L = torch.linalg.cholesky(torch.as_tensor(
+        np.asarray(ml2.levels[0].tg_data.Ac.todense(), np.float64)).to(dev))
+    ref = torch.cholesky_inverse(L).to(torch.float32)
+    del L
+    torch.cuda.synchronize(dev)
+    ref_s = time.perf_counter() - t0
+    diff = float((h2.Ainv - ref).abs().max() / ref.abs().max())
+    log("twolevel setup", coarsest_dofs=nc, inverse_s=f"{inv_s:.3f}",
+        compile_s=f"{compile_s:.2f}", compile_peak_device_bytes=peak,
+        ainv_bytes=nbytes(h2.Ainv), f64_inverse_s=f"{ref_s:.3f}",
+        inverse_vs_f64_rel_diff=f"{diff:.3e}")
+    out = h2.to("cpu"), ref.cpu()
+    del h2, ref
+    leave_card(torch)
+    return out
 
 
 def leave_card(torch):
@@ -1242,7 +1325,7 @@ def main() -> int:
     device_setup = not args.host_setup
 
     # 3. setup ----------------------------------------------------------
-    if {"flagship", "capacity", "contract"} & set(paths):
+    if set(STRUCTURED) & set(paths):
         supers = (2, 2, 2) if args.n < 32 else None
         (ml, b_np, geo, supers, fac), setup_s = timed_setup(
             "flagship", lambda: flagship_problem(
@@ -1262,7 +1345,19 @@ def main() -> int:
             ml, geo, supers, rp_dtype=torch.float32,
             use_pallas_contract=True, device="cpu") \
             if "contract" in paths else None
+        # the JAX compile_structured's other branches on the same setup:
+        # the dense coarsest restriction, the dense mid operator, the
+        # packed mid passes by request
+        opt_cpu = {name: compile_structured(ml, geo, sb, device="cpu", **kw)
+                   for name, (sb, kw) in (
+                       ("dense_R1", (None, {})),
+                       ("dense_mid", (supers, {"mid_format": "dense"})),
+                       ("packed_mid", (supers, {"mid_resident": False})))
+                   } if "options" in paths else {}
         compile_s = time.perf_counter() - t0
+        if "twolevel" in paths:
+            h2_cpu, ainv_f64 = twolevel_compile(ml, geo, dev, torch, np,
+                                                compile_structured)
         # the mid operator in the slot-major padded layout: the library
         # yardstick of the packed matvec is one sparse product with it
         Ac = ml.levels[0].tg_data.Ac.tocoo()
@@ -1580,9 +1675,6 @@ def main() -> int:
                                            f"{a} iterations at {tol}")
         del hk, hk_cpu
         leave_card(torch)
-    if {"flagship", "capacity", "contract"} & set(paths):
-        del h_cpu, A_host
-
     # 7. general --------------------------------------------------------
     if "general" in paths:
         (ml, A_gen, b_gen), gsetup_s = timed_setup(
@@ -1654,6 +1746,88 @@ def main() -> int:
             results["general"] = gen
         del g, g_cpu
         leave_card(torch)
+
+    # 8. twolevel -------------------------------------------------------
+    if "twolevel" in paths and full:
+        h2 = copy.deepcopy(h2_cpu).to(dev)
+        two = run_slice("twolevel", h2, h2_cpu, b_np, A_host, wrappers,
+                        torch, np, struct_vcycle_apply, s_pcg,
+                        device_profile)
+        check_launches("twolevel", two["launches"],
+                       ("stencil", "wavefront", "window_R", "window_P"),
+                       ("mid_chain", "midmv", "mfree", "mfree_chain",
+                        "smoother", "contract_R", "contract_P"))
+        # the same hierarchy with the f64 inverse rounded to f32 (the JAX
+        # small-size route) in place of the card's f32 Cholesky inverse
+        del h2
+        leave_card(torch)
+        h2r = copy.deepcopy(h2_cpu)
+        h2r.Ainv = ainv_f64
+        h2r = h2r.to(dev)
+        bd = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+        _, v_rel = rel_err(two["vcycle"], struct_vcycle_apply(h2r, bd).cpu())
+        its_ref = tuple(s_pcg(h2r, bd, tol)[1] for tol in TOLS)
+        log("twolevel", f64_inverse_vcycle_rel_diff=f"{v_rel:.3e}",
+            pcg_iters=two["it"], f64_inverse_pcg_iters=its_ref)
+        if any(abs(a - c) > 1 for a, c in zip(two["it"], its_ref)):
+            raise RuntimeError(f"twolevel PCG {two['it']} vs {its_ref} with "
+                               "the f64 inverse")
+        results["twolevel"] = two
+        del h2r, bd
+        leave_card(torch)
+    if "twolevel" in paths:
+        del h2_cpu, ainv_f64
+
+    # 9. options ---------------------------------------------------------
+    if "options" in paths and full:
+        # (route, kernels it must launch, kernels it must not, iterations
+        # allowed off the flagship's)
+        never = ("mfree", "mfree_chain", "smoother", "contract_R",
+                 "contract_P")
+        fine = ("stencil", "wavefront", "window_R", "window_P")
+        checks = {"dense_R1": ("resident", fine + ("mid_chain",),
+                               never + ("midmv",), 0),
+                  "dense_mid": ("dense", fine,
+                                never + ("mid_chain", "midmv"), 1),
+                  "packed_mid": ("packed", fine + ("midmv",),
+                                 never + ("mid_chain",), 1)}
+        for name, ho_cpu in opt_cpu.items():
+            route, must, nope, slack = checks[name]
+            if ho_cpu.mid_route != route:
+                raise RuntimeError(f"{name}: mid route {ho_cpu.mid_route}, "
+                                   f"expected {route}")
+            ho = copy.deepcopy(ho_cpu).to(dev)
+            # the dense mid rounds x to bf16 at every mid product, so an
+            # f32 sum order that differs between card and CPU moves a
+            # rounded entry by up to one bf16 step: its V-cycle holds to
+            # the CPU copy's within 2^-8; and the plain CPU products widen
+            # the 18,917^2 bf16 operator at every matvec, so the CPU copy
+            # checks that one V-cycle, not a PCG
+            dense = name == "dense_mid"
+            opt = run_slice(name, ho, ho_cpu, b_np, A_host, wrappers, torch,
+                            np, struct_vcycle_apply, s_pcg, device_profile,
+                            cpu_pcg=not dense,
+                            cpu_tol=2.0 ** -8 if dense else 1e-4)
+            check_launches(name, opt["launches"], must, nope)
+            if name == "packed_mid":
+                check_launches("packed_mid midmv", opt["modes"]["midmv"],
+                               ("root", "residual"), ("spmv",))
+            if flag is not None:
+                _, v_rel = rel_err(opt["vcycle"], flag["vcycle"])
+                log(name, flagship_pcg_iters=flag["it"], pcg_iters=opt["it"],
+                    vcycle_vs_flagship_rel_diff=f"{v_rel:.3e}")
+                if any(abs(a - c) > slack
+                       for a, c in zip(flag["it"], opt["it"])):
+                    raise RuntimeError(f"{name} PCG {opt['it']} vs flagship "
+                                       f"{flag['it']} iterations")
+                if name == "dense_R1" and not v_rel <= 1e-4:
+                    raise RuntimeError(f"dense_R1 V-cycle vs flagship rel "
+                                       f"diff {v_rel:.3e} > 1e-4")
+            results[name] = opt
+            del ho
+            leave_card(torch)
+    if set(STRUCTURED) & set(paths):
+        del h_cpu, A_host, opt_cpu
 
     path_of = {"mfree": "capacity", "mfree_chain": "capacity",
                "midmv": "capacity",

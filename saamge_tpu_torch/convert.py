@@ -7,20 +7,29 @@ told apart by class name, so this module needs no JAX.  It covers DIA
 levels, block-row and ELL transfer operators, and the Cholesky factor.
 
 ``from_jax_arrays`` takes the fields of a saamge_tpu
-``StructuredHierarchy`` (built with super_bricks) as numpy arrays, so
+``StructuredHierarchy`` on the flat fine layout as numpy arrays, so
 that this module needs no JAX:
 
-  d["A0.vals2"], d["A0s.vals2"]  (k, n_rows_pad, 128) tiled diagonals
+  d["A0.vals2"], d["A0s.vals2"]  (k, n_rows_pad, 128) tiled diagonals (no
+                                 "A0s.vals2": the smoother is A0 itself)
   d["dinv0h"]                    (t_rows, 128) haloed fine scaling
-  d["taus0"], d["taus1"]         1/tau of each root
+  d["taus0"]                     1/tau of each fine root
   d["Rst"]                       (bs, box, NB) tent blocks
+  d["flat_id"], d["Ainv"]        real-dof ids, the coarsest inverse
+
+and, for three levels (a two-level hierarchy has none of these),
+
+  d["taus1"], d["dinv1"]         the mid roots and scaling
   d["A1d.blocks"]                (k1, bs, bs, NB) mid blocks (and from
                                  them the resident chain's tiles, as
-                                 compile_structured builds them)
-  d["dinv1"], d["Rst1"], d["flat_id"], d["flat_id2"], d["Ainv"]
+                                 compile_structured builds them), or
+  d["A1d"]                       the dense (n1, n1) mid operator
+  d["Rst1"], d["flat_id2"]       superbrick tent blocks and their ids, or
+  d["R1"]                        the dense coarsest restriction
 
 and ``meta`` with "offsets", "n", "hr" (the TPU layout's halo rows),
-"doffs", "rects", "bricks", "brick_elems" and "supers".  A capacity
+"bricks", "brick_elems", and where they apply "doffs", "rects" and
+"supers" (None or absent without superbricks).  A capacity
 hierarchy (mfree, hbm_frugal) has in place of the stored operators
 
   d["A0s.c_h"], d["A0s.m_h"]     (t_rows, 128) matrix-free smoother twin
@@ -101,12 +110,23 @@ def from_jax_arrays(d: dict, meta: dict,
     if "A1d.blocks" in d:
         mid = mid_buffers(_tensor(d["A1d.blocks"]), meta["rects"],
                           geo.bricks, device)
-    else:
+    elif "A1kC" in d:
         NB = geo.num_bricks
         mid = {"A1_packed": torch.cat([
             _tensor(np.ascontiguousarray(
                 np.asarray(a)[:r2, :r1, :NB].transpose(1, 0, 2))).reshape(-1)
             for a, (r1, r2) in zip(d["A1kC"], meta["rects"])])}
+    elif "A1d" in d:
+        mid = {"A1_dense": _tensor(d["A1d"])}
+    else:
+        mid = {}
+    if "dinv1" in d:
+        mid.update(dinv1=_tensor(d["dinv1"]),
+                   taus1=np.asarray(d["taus1"], np.float32).reshape(-1),
+                   doffs=meta.get("doffs", ()), rects=meta.get("rects", ()))
+    for key in ("Rst1", "flat_id2", "R1"):
+        if key in d:
+            mid[key] = _tensor(d[key])
     if "Rst_pad" in d:
         Rst = _tensor(np.ascontiguousarray(
             np.asarray(d["Rst_pad"])[:, :geo.box, :geo.num_bricks]))
@@ -114,16 +134,14 @@ def from_jax_arrays(d: dict, meta: dict,
         Rst = _rst_from_window(d["Wc.rstw"], geo.bricks, geo.brick_elems)
     else:
         Rst = _tensor(d["Rst"])
+    A0 = fine_op("A0.vals2", "A0m")
+    A0s = (fine_op("A0s.vals2", "A0s")
+           if "A0s.vals2" in d or "A0s.c_h" in d else A0)
     h = StructuredHierarchy(
-        A0=fine_op("A0.vals2", "A0m"), A0s=fine_op("A0s.vals2", "A0s"),
-        dinv0=unhalo(d["dinv0h"]),
+        A0=A0, A0s=A0s, dinv0=unhalo(d["dinv0h"]),
         taus0=np.asarray(d["taus0"], np.float32).reshape(-1), Rst=Rst,
-        doffs=meta["doffs"], rects=meta["rects"],
-        dinv1=_tensor(d["dinv1"]),
-        taus1=np.asarray(d["taus1"], np.float32).reshape(-1),
-        Rst1=_tensor(d["Rst1"]), flat_id=_tensor(d["flat_id"]),
-        flat_id2=_tensor(d["flat_id2"]), Ainv=_tensor(d["Ainv"]), geo=geo,
-        supers=meta["supers"], contract="Rst_pad" in d, **mid)
+        flat_id=_tensor(d["flat_id"]), Ainv=_tensor(d["Ainv"]), geo=geo,
+        supers=meta.get("supers"), contract="Rst_pad" in d, **mid)
     return h.to(device)
 
 

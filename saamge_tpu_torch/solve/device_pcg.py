@@ -214,6 +214,9 @@ def pcg(h: torch.nn.Module, matvec: Callable, precond: Callable,
         graph: bool = True):
     """PCG on hierarchy ``h``'s cached runner for b's dtype and device
     (and x0 or none); returns (x, iterations, final (B r, r))."""
+    # the key needs no matvec or preconditioner: a hierarchy has one of
+    # each, and every compile_structured configuration (level count,
+    # coarsest restriction, mid format and route) is a hierarchy of its own
     key = ("pcg", b.dtype, b.device, x0 is not None)
     runner = solve_graphs(h).get(
         key, h, lambda: PCGRunner(matvec, precond, b, x0 is not None))
@@ -226,5 +229,5 @@ def graphed(h: torch.nn.Module, fn: Callable, b: torch.Tensor,
     ``fn`` for b's dtype, eagerly on the CPU or with ``graph=False``."""
     if not (graph and b.device.type == "cuda"):
         return fn(b)
-    key = ("graphed", b.dtype, b.device)
+    key = ("graphed", b.dtype, b.device)   # one V-cycle a hierarchy, as pcg
     return solve_graphs(h).get(key, h, lambda: GraphedApply(fn, b))(b)

@@ -1,9 +1,9 @@
 """Structured (brick) hierarchy of the flagship solve, in PyTorch.
 
-Port of saamge_tpu/solve/structured.py for its flagship configuration:
-three levels on a Cartesian brick partitioning with a superbrick
-coarsest level, bf16 (or f32) smoother twin, tent blocks and mid
-blocks, and an f32 PCG operator.  One V-cycle runs
+Port of saamge_tpu/solve/structured.py on the flat fine layout: two or
+three levels on a Cartesian brick partitioning, bf16 (or f32) smoother
+twin, tent blocks and mid operator, and an f32 PCG operator.  One
+three-level V-cycle of the flagship configuration runs
 
   fine pre-smoothing sweep + residual   (ops/wavefront.py, kernel)
   tent restriction R                    (ops/window.py, kernel)
@@ -15,9 +15,18 @@ blocks, and an f32 PCG operator.  One V-cycle runs
 
 and PCG's operator is the f32 stencil matvec (ops/stencil.py, kernel).
 The mid chains keep the operator resident in shared memory; a mid
-operator whose tiles do not fit one wave of the card takes the packed
-passes of the capacity configuration instead, a choice made at compile
-(``mid_buffers``).
+operator whose tiles do not fit one wave of the card, or
+``mid_resident=False``, takes the packed passes of the capacity
+configuration instead, a choice made at compile (``mid_buffers``).
+
+The other branches of the JAX compile_structured: a two-level
+hierarchy, whose dense coarsest inverse follows the tent directly; a
+dense coarsest restriction ``R1`` where no superbrick grid is given; and
+the dense mid format (``mid_format='dense'``: the mid operator a dense
+matrix on the unpadded coarse dofs, its products plain bf16-in / f32-out
+matrix products).  The coarsest inverse is the host f64 inverse up to n
+= 4096 and a Cholesky factorization on the hierarchy's device above
+(``_device_spd_inverse``).
 
 The full-capacity configuration (``mfree`` with ``hbm_frugal``, the
 JAX package's ``run_capacity.py`` flags) keeps no stored fine operator
@@ -46,6 +55,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saamge_tpu_torch._device import card_or_cpu, is_cuda
 from saamge_tpu_torch.ops.contract import (SlotLists, contract_P,
                                            contract_R, extract_boxes,
                                            fold_boxes, fold_index,
@@ -61,7 +71,10 @@ from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.ops.wavefront import wavefront_smooth
 from saamge_tpu_torch.ops.window import slot_ranges, window_P, window_R
 from saamge_tpu_torch.solve.device_pcg import graphed, pcg
-from saamge_tpu_torch.utils.logging import sa_print
+from saamge_tpu_torch.utils.logging import TIMERS, sa_print
+
+SPD_HOST_MAX = 4096     # above this size the coarsest inverse is factored
+SPD_CHUNK = 2048        # identity columns per triangular solve
 
 
 # ---------------------------------------------------------------------------
@@ -226,25 +239,66 @@ def brick_block_from_csr(Ac: sp.csr_matrix, cd_brick: np.ndarray,
     return blocks, doffs, tuple(rects)
 
 
-def mid_buffers(A1_blocks: torch.Tensor, rects, bricks, device) -> dict:
+def mid_buffers(A1_blocks: torch.Tensor, rects, bricks, device,
+                resident: bool | None = None) -> dict:
     """The mid operator's buffers beside its full blocks: the resident
     chain's tile-major packing (``A1_tiles``) and its launch plan
     (``mid_plan``) when its tiles fit one resident wave of ``device``'s
     card (ops/midsmooth.mid_tile_plan; for a CPU device the H100's), else
     the packed rectangles (``A1_packed``) of the one-pass-per-root route.
-    A compile-time choice by shape, logged; the values are those of
-    ``A1_blocks``, exactly."""
-    try:
-        plan = mid_tile_plan(bricks, A1_blocks.shape[1], rects,
-                             *card_limits(device), A1_blocks.element_size())
-    except MidTileMisfit as e:
-        sa_print(1, f"mid operator: packed passes, not the resident chain "
-                 f"({e})")
-        return {"A1_blocks": A1_blocks, "A1_packed": torch.cat(
-            [A1_blocks[k, :r1, :r2].reshape(-1)
-             for k, (r1, r2) in enumerate(rects)])}
-    return {"A1_blocks": A1_blocks, "mid_plan": plan,
-            "A1_tiles": pack_tiles(A1_blocks, rects, plan.tile)}
+    ``resident`` None chooses by shape, logged; True demands the resident
+    chain (a misfit raises MidTileMisfit); False takes the packed route.
+    The values are those of ``A1_blocks``, exactly."""
+    if resident is not False:
+        try:
+            plan = mid_tile_plan(bricks, A1_blocks.shape[1], rects,
+                                 *card_limits(device),
+                                 A1_blocks.element_size())
+        except MidTileMisfit as e:
+            if resident:
+                raise
+            sa_print(1, f"mid operator: packed passes, not the resident "
+                     f"chain ({e})")
+        else:
+            return {"A1_blocks": A1_blocks, "mid_plan": plan,
+                    "A1_tiles": pack_tiles(A1_blocks, rects, plan.tile)}
+    return {"A1_blocks": A1_blocks, "A1_packed": torch.cat(
+        [A1_blocks[k, :r1, :r2].reshape(-1)
+         for k, (r1, r2) in enumerate(rects)])}
+
+
+def _device_spd_inverse(Ac: np.ndarray, device="cpu") -> torch.Tensor:
+    """Explicit f32 inverse of the SPD coarsest operator ``Ac`` (a dense
+    f64 host array), by the rule of the JAX package's function of this
+    name: up to n = 4096 the host f64 inverse rounded to f32 (a CPU
+    tensor); above, ``Ac`` rounded to f32 and factored on ``device``
+    (``torch.linalg.cholesky_ex``, lower), freed, and the factor solved
+    against column chunks of the identity, 2048 wide (one full-width
+    solve makes n^2-sized temporaries).  Where the f32 matrix is not
+    positive definite this raises with the failed pivot; the JAX
+    ``cho_factor`` returns NaN there."""
+    n = Ac.shape[0]
+    if n <= SPD_HOST_MAX:
+        return torch.as_tensor(np.linalg.inv(Ac)).to(torch.float32)
+    with TIMERS.phase("compile.coarsest_inverse"):
+        A = torch.as_tensor(Ac, dtype=torch.float32).to(device)
+        L, info = torch.linalg.cholesky_ex(A)
+        del A
+        if int(info):
+            raise np.linalg.LinAlgError(
+                f"coarsest operator ({n} x {n}, rounded to f32) is not "
+                f"positive definite: its leading minor of order "
+                f"{int(info)} is not")
+        out = torch.empty(n, n, dtype=torch.float32, device=L.device)
+        for j in range(0, n, SPD_CHUNK):
+            w = min(SPD_CHUNK, n - j)
+            E = torch.zeros(n, w, dtype=torch.float32, device=L.device)
+            E[j:j + w] = torch.eye(w, dtype=torch.float32, device=L.device)
+            out[:, j:j + w] = torch.cholesky_solve(E, L)
+        del L, E
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -252,42 +306,71 @@ def mid_buffers(A1_blocks: torch.Tensor, rects, bricks, device) -> dict:
 
 
 class StructuredHierarchy(torch.nn.Module):
-    """3-level structured hierarchy.  Arrays are buffers, so ``.to(dev)``
-    moves it; on a CUDA device every kernel of the cycle is a
-    hand-written one, on the CPU each runs its plain torch version.
+    """2- or 3-level structured hierarchy.  Arrays are buffers, so
+    ``.to(dev)`` moves it; on a CUDA device every kernel of the cycle is
+    a hand-written one, on the CPU each runs its plain torch version.
 
     The PCG operator A0 (f32) and the smoother twin A0s are each stored
     diagonals (buffer ``<name>_vals``, (k, n), ops/sparse.DIA) or
     matrix-free (buffers ``<name>_c`` and ``<name>_m``, the haloed
-    coefficient field and node mask, ops/mfree.MatrixFreeQ1).  The mid
-    operator runs by one of two routes (``mid_route``): "resident", the
-    chain kernel on ``A1_tiles``, the tile-major packing of the full
-    blocks ``A1_blocks`` (k1, bs, bs, NB) in tiles of ``mid_plan.tile``
-    bricks (ops/midsmooth.pack_tiles), launched by ``mid_plan``, with the
-    plain chain on ``A1_blocks``; or
+    coefficient field and node mask, ops/mfree.MatrixFreeQ1).  Other
+    fine-level buffers: dinv0h haloed fine smoother scaling; Rst (bs,
+    box, NB) tent blocks and Rst_rng (2, box, NB) their nonzero slot
+    ranges; flat_id the real-dof ids in the slot-major padded layout.
+    With ``contract`` the tent R/P run as box contractions
+    (ops/contract.py) instead of the window kernels: slot_order,
+    slot_start, slot_val and slot_node are contract R's by-slot node
+    lists (ops/contract.slot_lists, with the length classes
+    ``slot_classes``), and fold_idx (n,) int32 is the box fold's gather
+    index.
+
+    Two levels (``levels == 2``): no mid operator; Ainv is the f32
+    inverse of the coarse operator on the real dofs, (n_c, n_c).
+
+    Three levels: the mid operator runs by one of three routes
+    (``mid_route``): "resident", the chain kernel on ``A1_tiles``, the
+    tile-major packing of the full blocks ``A1_blocks`` (k1, bs, bs, NB)
+    in tiles of ``mid_plan.tile`` bricks (ops/midsmooth.pack_tiles),
+    launched by ``mid_plan``, with the plain chain on ``A1_blocks``;
     "packed", one root pass per root over the packed rectangles
     ``A1_packed`` (ops/midmv.py), with ``A1_blocks`` kept where the
-    hierarchy is not hbm_frugal.  Other buffers: dinv0h haloed fine
-    smoother scaling; Rst (bs, box, NB) tent blocks and Rst_rng (2, box,
-    NB) their nonzero slot ranges; dinv1 (bs*NB,) mid scaling (0 on
-    padding slots); Rst1 (bs2, win, NB2) superbrick tent blocks; flat_id
-    / flat_id2 real-dof ids in the padded layouts; Ainv the coarsest
-    inverse (f32 or bf16).  With ``contract`` the tent R/P run as box
-    contractions (ops/contract.py) instead of the window kernels:
-    slot_order, slot_start, slot_val and slot_node are contract R's
-    by-slot node lists (ops/contract.slot_lists, with the length classes
-    ``slot_classes``), and fold_idx (n,) int32 is the box fold's gather
-    index."""
+    hierarchy is not hbm_frugal; or "dense", the dense (n1, n1) operator
+    ``A1_dense`` on the real coarse dofs.  dinv1 is the mid scaling:
+    (bs*NB,) with 0 on padding slots, or (n1,) beside ``A1_dense``.  The
+    coarsest restriction is either the superbrick tent blocks Rst1 (bs2,
+    win, NB2), with flat_id2 the real-dof ids of their padded layout, or
+    the dense R1, (n2, bs*NB) (zero padding columns) or (n2, n1) beside
+    ``A1_dense``; Ainv is the coarsest inverse (f32 or bf16)."""
 
-    def __init__(self, *, A0, A0s, dinv0, taus0, Rst, doffs, rects, dinv1,
-                 taus1, Rst1, flat_id, flat_id2, Ainv, geo: BrickGeometry,
-                 supers, A1_blocks=None, A1_tiles=None,
+    def __init__(self, *, A0, A0s, dinv0, taus0, Rst, flat_id, Ainv,
+                 geo: BrickGeometry, doffs=(), rects=(), dinv1=None,
+                 taus1=(), Rst1=None, flat_id2=None, supers=None, R1=None,
+                 A1_blocks=None, A1_tiles=None,
                  mid_plan: MidTilePlan | None = None, A1_packed=None,
-                 contract: bool = False):
+                 A1_dense=None, contract: bool = False):
         super().__init__()
         self.contract = bool(contract)
-        if (A1_tiles is None) == (A1_packed is None):
-            raise ValueError("give exactly one of A1_tiles and A1_packed")
+        mids = sum(a is not None for a in (A1_tiles, A1_packed, A1_dense))
+        if mids > 1:
+            raise ValueError("give at most one of A1_tiles, A1_packed and "
+                             "A1_dense")
+        self.levels = 3 if mids else 2
+        if self.levels == 2 and any(a is not None for a in (
+                A1_blocks, dinv1, R1, Rst1, flat_id2)):
+            raise ValueError("a two-level hierarchy has no mid operator, "
+                             "mid scaling or coarsest restriction")
+        if self.levels == 3:
+            if dinv1 is None:
+                raise ValueError("a three-level hierarchy needs dinv1")
+            if (R1 is None) == (Rst1 is None):
+                raise ValueError("give exactly one of R1 (dense coarsest "
+                                 "restriction) and Rst1 (superbrick tent "
+                                 "blocks)")
+            if Rst1 is not None and (flat_id2 is None or supers is None):
+                raise ValueError("the superbrick tent blocks need flat_id2 "
+                                 "and supers")
+            if A1_dense is not None and R1 is None:
+                raise ValueError("the dense mid operator takes the dense R1")
         if A1_tiles is not None and (A1_blocks is None or mid_plan is None):
             raise ValueError("the resident mid chain needs A1_blocks and "
                              "its mid_plan")
@@ -297,7 +380,8 @@ class StructuredHierarchy(torch.nn.Module):
                              f"twin halo {A0s.halo}")
         self.n = int(np.prod(geo.nodes))
         self.geo = geo
-        self.supers = tuple(int(s) for s in supers)
+        self.supers = (tuple(int(s) for s in supers) if supers is not None
+                       else None)
         self.taus0 = tuple(float(t) for t in taus0)
         self.taus1 = tuple(float(t) for t in taus1)
         self.doffs = tuple(tuple(int(c) for c in d) for d in doffs)
@@ -333,10 +417,14 @@ class StructuredHierarchy(torch.nn.Module):
         self.register_buffer("A1_blocks", A1_blocks)
         self.register_buffer("A1_tiles", A1_tiles)
         self.register_buffer("A1_packed", A1_packed)
-        self.register_buffer("dinv1", dinv1.to(torch.float32))
+        self.register_buffer("A1_dense", A1_dense)
+        self.register_buffer("dinv1", dinv1.to(torch.float32)
+                             if dinv1 is not None else None)
         self.register_buffer("Rst1", Rst1)
+        self.register_buffer("R1", R1)
         self.register_buffer("flat_id", flat_id.to(torch.int64))
-        self.register_buffer("flat_id2", flat_id2.to(torch.int64))
+        self.register_buffer("flat_id2", flat_id2.to(torch.int64)
+                             if flat_id2 is not None else None)
         self.register_buffer("Ainv", Ainv)
 
     # -- operators and layouts -------------------------------------------
@@ -357,8 +445,14 @@ class StructuredHierarchy(torch.nn.Module):
         return self._fine_op("A0s")
 
     @property
-    def mid_route(self) -> str:
-        return "resident" if self.A1_tiles is not None else "packed"
+    def mid_route(self) -> str | None:
+        """"resident", "packed" or "dense"; None for two levels."""
+        for route, buf in (("resident", self.A1_tiles),
+                           ("packed", self.A1_packed),
+                           ("dense", self.A1_dense)):
+            if buf is not None:
+                return route
+        return None
 
     @property
     def bs(self) -> int:
@@ -420,11 +514,16 @@ class StructuredHierarchy(torch.nn.Module):
             .permute(0, 4, 1, 5, 2, 6, 3).reshape(-1)
 
     def coarsest_correct(self, r1: torch.Tensor) -> torch.Tensor:
+        """P1 Ainv R1 r1 on the mid layout.  A bf16 inverse or R1 is
+        widened for the product, as XLA promotes the JAX package's
+        mixed-dtype matmuls."""
+        Ainv = self.Ainv.to(torch.float32)
+        if self.R1 is not None:
+            R1 = self.R1.to(torch.float32)
+            return R1.T @ (Ainv @ (R1 @ r1))
         rc2 = self.apply_R1(r1)
         y2 = torch.zeros_like(rc2)
-        # a bf16 inverse is widened for the product, as XLA promotes the
-        # JAX package's mixed-dtype matmul
-        y2[self.flat_id2] = self.Ainv.to(torch.float32) @ rc2[self.flat_id2]
+        y2[self.flat_id2] = Ainv @ rc2[self.flat_id2]
         return self.apply_P1(y2)
 
     def mid_pass(self, mode: str, x: torch.Tensor, b=None,
@@ -434,9 +533,42 @@ class StructuredHierarchy(torch.nn.Module):
         return midmv(self.A1_packed, self.doffs, self.rects, self.geo.bricks,
                      self.bs, x, mode, b, self.dinv1, inv_tau)
 
+    def mid_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A1 x of the dense mid operator, as the JAX package's
+        ``jnp.dot(A1, x.astype(A1.dtype), preferred_element_type=f32)``:
+        x rounded to A1's dtype, the product accumulated and returned in
+        f32.  A bf16 A1 on the card is one bf16-in / f32-out cuBLAS
+        product (no widened copy of the operator); on the CPU the plain
+        form widens both."""
+        A1 = self.A1_dense
+        xr = x.to(A1.dtype)
+        if A1.dtype == torch.float32:
+            return A1 @ xr
+        if is_cuda(A1, xr):
+            return torch.mm(A1, xr[:, None], out_dtype=torch.float32)[:, 0]
+        return A1.float() @ xr.float()
+
+    def _dense_correct(self, rc: torch.Tensor) -> torch.Tensor:
+        """mid_correct of the dense mid format: the chains on rc's real
+        dofs, in the op order of the JAX mid_correct's unpadded branch,
+        scattered back into the padded layout."""
+        b1 = rc[self.flat_id]
+        x1 = torch.zeros_like(b1)
+        for it in self.taus1:
+            x1 = x1 + self.dinv1 * (b1 - self.mid_matvec(x1)) * it
+        x1 = x1 + self.coarsest_correct(b1 - self.mid_matvec(x1))
+        for it in self.taus1:
+            x1 = x1 + self.dinv1 * (b1 - self.mid_matvec(x1)) * it
+        xc = torch.zeros_like(rc)
+        xc[self.flat_id] = x1
+        return xc
+
     def mid_correct(self, rc: torch.Tensor) -> torch.Tensor:
         """Pre mid-chain (+ residual), coarsest correction, post
-        mid-chain, on the slot-major padded mid layout."""
+        mid-chain, from the restricted residual in the slot-major padded
+        layout."""
+        if self.mid_route == "dense":
+            return self._dense_correct(rc)
         if self.mid_route == "resident":
             args = (self.A1_blocks, self.A1_tiles, self.mid_plan, self.doffs,
                     self.rects, self.geo.bricks, self.taus1)
@@ -454,6 +586,17 @@ class StructuredHierarchy(torch.nn.Module):
             x1 = self.mid_pass("root", x1, rc, it)
         return x1
 
+    def coarse_correct(self, rc: torch.Tensor) -> torch.Tensor:
+        """The coarse-grid correction of the restricted residual: two
+        levels, the coarsest inverse on the real dofs scattered back into
+        the padded layout (the JAX vcycle's two-level branch); three
+        levels, mid_correct."""
+        if self.levels == 3:
+            return self.mid_correct(rc)
+        xc = torch.zeros_like(rc)
+        xc[self.flat_id] = self.Ainv.to(torch.float32) @ rc[self.flat_id]
+        return xc
+
     def _smooth_h(self, A, bh, xh, emit_res: bool = False):
         """All fine roots (+ the trailing residual) in one launch: the
         sweep kernel for stored diagonals, the matrix-free chain kernel
@@ -470,50 +613,74 @@ class StructuredHierarchy(torch.nn.Module):
         bh = A0s.pad(b)
         xh, resh = self._smooth_h(A0s, bh, torch.zeros_like(bh),
                                   emit_res=True)
-        xc = self.mid_correct(self.apply_R(A0s.unpad(resh)))
+        xc = self.coarse_correct(self.apply_R(A0s.unpad(resh)))
         xh = xh + A0s.pad(self.apply_P(xc))
         xh = self._smooth_h(A0s, bh, xh)
         return A0s.unpad(xh)
 
 
-def compile_structured(ml, geo: BrickGeometry, super_bricks,
+def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
                        smoother_dtype=torch.bfloat16,
                        rp_dtype=torch.bfloat16,
                        mid_dtype=torch.bfloat16,
                        device="cuda", mfree=None, hbm_frugal: bool = False,
                        ainv_dtype=torch.float32,
-                       use_pallas_contract: bool = False
+                       use_pallas_contract: bool = False,
+                       mid_format: str = "brickblock",
+                       mid_resident: bool | None = None
                        ) -> StructuredHierarchy:
-    """Build the structured hierarchy from a 3-level host setup product
-    on a brick partitioning with a superbrick coarsest level (the
-    flagship configuration; JAX counterpart compile_structured with
-    super_bricks, window_contract, wavefront and the resident mid
-    chain).  ``smoother_dtype``, ``rp_dtype`` and ``mid_dtype`` are the
-    storage dtypes of the fine smoother twin, the tent blocks (Rst and
-    Rst1) and the mid blocks; the PCG operator is always f32.
+    """Build the structured hierarchy from a 2- or 3-level host setup
+    product on a brick partitioning with a tentative finest P (JAX
+    counterpart compile_structured on the flat fine layout, with
+    window_contract and wavefront).  ``smoother_dtype``, ``rp_dtype`` and
+    ``mid_dtype`` are the storage dtypes of the fine smoother twin, the
+    tent blocks (Rst, and Rst1 or R1) and the mid operator; the PCG
+    operator is always f32.
+
+    Three levels: ``super_bricks`` (SX, SY, SZ), the superbrick grid of
+    the 3rd-level partitioning (with a tentative P1), makes the coarsest
+    restriction the per-superbrick tent blocks Rst1 (the flagship
+    configuration); None makes it the dense R1 (n2 x n_flat, zero in the
+    padding columns).  ``mid_format`` 'brickblock' stores the mid
+    operator as per-brick-offset blocks in the slot-major padded layout;
+    'dense' as the dense n1 x n1 matrix on the real coarse dofs, with the
+    dense n2 x n1 R1 (``super_bricks`` is then ignored).
+    ``mid_resident`` (brickblock): None runs the mid chains resident in
+    shared memory when their tiles fit one wave of the card, else the
+    packed passes; True demands the resident chain (a misfit raises
+    MidTileMisfit); False takes the packed passes.
+
+    The coarsest inverse (``_device_spd_inverse``): the host f64 inverse
+    up to n = 4096, else a Cholesky factorization on ``device``.
+    ``ainv_dtype`` is its storage dtype with three levels; the two-level
+    inverse (n_c x n_c, after the tent) is always f32, as in the JAX
+    package.
 
     The capacity options of the JAX compile_structured:
     ``mfree=(em0, c_elem, ess_dofs)`` (when the fine operator factors
     per element as c_e * em0, fem/assemble.py diffusion_factorized)
     makes the smoother twin matrix-free, with its coefficient field in
     ``smoother_dtype``, checked against the operator's diagonal on every
-    row.  ``hbm_frugal`` stores the mid operator as packed rectangles
-    only and, with ``mfree``, makes the PCG operator an f32 matrix-free
-    one: no (k, n) diagonals and no full mid blocks are kept.
-    ``ainv_dtype`` is the storage dtype of the coarsest inverse.
+    row.  ``hbm_frugal`` stores a brickblock mid operator as packed
+    rectangles only and, with ``mfree``, makes the PCG operator an f32
+    matrix-free one: no (k, n) diagonals and no full mid blocks are kept.
 
     ``use_pallas_contract`` runs the tent R/P as box extraction and the
     contraction kernels (ops/contract.py) instead of the window kernels;
     the JAX configuration pairs it with f32 tent blocks
     (``rp_dtype=torch.float32``).  The hierarchy is built on ``device``
     (the card unless the caller asks for "cpu")."""
-    if len(ml.levels) != 2:
-        raise ValueError("the structured port needs a 3-level setup "
-                         f"(2 two-grid levels), got {len(ml.levels)}")
+    device = card_or_cpu(device)
+    if len(ml.levels) not in (1, 2):
+        raise ValueError("the structured path takes a 2- or 3-level setup "
+                         f"(1 or 2 two-grid levels), got {len(ml.levels)}")
+    if mid_format not in ("brickblock", "dense"):
+        raise ValueError(f"mid_format {mid_format!r}: expected 'brickblock' "
+                         "or 'dense'")
     lv0 = ml.levels[0]
     tg0 = lv0.tg_data
-    if tg0.smooth_interp or ml.levels[1].tg_data.smooth_interp:
-        raise ValueError("the structured path needs tentative P and P1")
+    if tg0.smooth_interp:
+        raise ValueError("the structured path needs the tentative P")
     pd0 = tg0.poly_data
     if pd0.roots2 is not None and len(pd0.roots2):
         raise ValueError("only single-chain root families are ported")
@@ -532,34 +699,61 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks,
     NB = geo.num_bricks
     flat_id = slot * NB + cd_brick
 
-    tg1 = ml.levels[1].tg_data
-    blocks, doffs, rects = brick_block_from_csr(
-        tg0.Ac.tocsr(), cd_brick, slot, bs, geo.bricks)
-    dinv1 = np.zeros(NB * bs)
-    dinv1[flat_id] = np.asarray(tg1.poly_data.dinv, np.float64)
-    Rst1, cd2_brick, slot2, _ = build_structured_interp2(
-        ml.levels[1].rels, tg1.tent_interp,
-        tg1.interp_data.mis_numcoarsedof, geo, super_bricks, cd_brick,
-        slot, bs)
-    flat_id2 = slot2 * int(np.prod(super_bricks)) + cd2_brick
-    Ainv = np.linalg.inv(np.asarray(tg1.Ac.todense(), dtype=np.float64))
-
     t = torch.as_tensor
-    if hbm_frugal:
-        mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
-    else:
-        mid = mid_buffers(t(blocks).to(torch.float32).to(mid_dtype), rects,
-                          geo.bricks, device)
-    h = StructuredHierarchy(
+    fine = dict(
         A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
         taus0=inv_taus_f32(pd0.roots),
         Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0))).to(rp_dtype),
-        doffs=doffs, rects=rects, dinv1=t(dinv1),
-        taus1=inv_taus_f32(tg1.poly_data.roots),
-        Rst1=t(Rst1).to(rp_dtype), flat_id=t(flat_id),
-        flat_id2=t(flat_id2),
-        Ainv=t(Ainv).to(torch.float32).to(ainv_dtype), geo=geo,
-        supers=super_bricks, contract=use_pallas_contract, **mid)
+        flat_id=t(flat_id), geo=geo, contract=use_pallas_contract)
+    Ac1 = tg0.Ac.tocsr()
+    if len(ml.levels) == 1:
+        Ainv = _device_spd_inverse(np.asarray(Ac1.todense(), np.float64),
+                                   device)
+        return StructuredHierarchy(Ainv=Ainv, **fine).to(device)
+
+    tg1 = ml.levels[1].tg_data
+    dinv1 = np.asarray(tg1.poly_data.dinv, np.float64)
+
+    def dense(M, dtype):
+        """f64 host array -> dtype, rounded to f32 first as the JAX
+        package's arrays are."""
+        return t(np.asarray(M, np.float64)).to(torch.float32).to(dtype)
+
+    if mid_format == "dense":
+        mid = {"A1_dense": dense(Ac1.todense(), mid_dtype),
+               "R1": dense(tg1.restr.todense(), rp_dtype)}
+    else:
+        blocks, doffs, rects = brick_block_from_csr(Ac1, cd_brick, slot, bs,
+                                                    geo.bricks)
+        dinv1p = np.zeros(NB * bs)
+        dinv1p[flat_id] = dinv1
+        dinv1 = dinv1p
+        if hbm_frugal:
+            mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
+        else:
+            mid = mid_buffers(dense(blocks, mid_dtype), rects, geo.bricks,
+                              device, resident=mid_resident)
+        mid.update(doffs=doffs, rects=rects)
+        if super_bricks is not None:
+            if tg1.smooth_interp:
+                raise ValueError("the superbrick coarsest restriction needs "
+                                 "the tentative P1")
+            Rst1, cd2_brick, slot2, _ = build_structured_interp2(
+                ml.levels[1].rels, tg1.tent_interp,
+                tg1.interp_data.mis_numcoarsedof, geo, super_bricks,
+                cd_brick, slot, bs)
+            mid.update(Rst1=t(Rst1).to(rp_dtype), supers=super_bricks,
+                       flat_id2=t(slot2 * int(np.prod(super_bricks))
+                                  + cd2_brick))
+        else:
+            R1 = np.zeros((tg1.restr.shape[0], NB * bs))
+            R1[:, flat_id] = tg1.restr.todense()
+            mid["R1"] = dense(R1, rp_dtype)
+    Ainv = _device_spd_inverse(np.asarray(tg1.Ac.todense(), np.float64),
+                               device)
+    h = StructuredHierarchy(
+        dinv1=t(dinv1), taus1=inv_taus_f32(tg1.poly_data.roots),
+        Ainv=Ainv.to(ainv_dtype), **fine, **mid)
     return h.to(device)
 
 

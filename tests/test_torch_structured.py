@@ -142,6 +142,15 @@ bt = torch.as_tensor(b, dtype=torch.float32)
 x, it, nom = struct_pcg_solve(h, bt, rel_tol=1e-8)
 res = np.linalg.norm(b - ml.levels[0].A @ x.double().numpy())
 assert 0 < it < 20 and res <= 1e-5 * np.linalg.norm(b), (it, res)
+import copy
+ml2 = copy.copy(ml)
+ml2.levels = ml.levels[:1]
+for mlx, kw in ((ml2, {}), (ml, {"mid_format": "dense"})):
+    h = compile_structured(mlx, geo, device="cpu", **kw)
+    x, it2, nom = struct_pcg_solve(h, bt, rel_tol=1e-8)
+    res = np.linalg.norm(b - ml.levels[0].A @ x.double().numpy())
+    assert h.levels == len(mlx.levels) + 1, h.levels
+    assert 0 < it2 < 20 and res <= 1e-5 * np.linalg.norm(b), (it2, res)
 ml, A, b = general_problem(n=8, levels=2, elems_per_agg=64)
 h = compile_hierarchy(ml, torch.float32, device="cpu")
 x, itg, nom = pcg_solve(h, torch.as_tensor(b, dtype=torch.float32),
@@ -154,9 +163,10 @@ print("NOJAX_OK", it, itg)
 
 
 def test_port_runs_without_jax():
-    """The port (package, host setup, n=8 flagship slice and hexkway
-    general path, PCG) imports no module of JAX or of the JAX package
-    saamge_tpu: the machine with the card has no JAX."""
+    """The port (package, host setup, n=8 flagship slice, its two-level
+    and dense-mid hierarchies, and hexkway general path, PCG) imports no
+    module of JAX or of the JAX package saamge_tpu: the machine with the
+    card has no JAX."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], env=env,
                           capture_output=True, text=True, timeout=300,
