@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Device-time profile of the port's solve paths on one NVIDIA card.
 
-    python3 chip_profile.py                     # all five paths
+    python3 chip_profile.py                     # all six paths
     python3 chip_profile.py --paths general     # one path
+    python3 chip_profile.py --paths scale --scale-n 200   # 8.12M dofs
 
 For each path (flagship, capacity, contract, twolevel: the n=96
 structured hierarchies of chip_smoke.py, the two-level one compiled on
-the card; general: hexkway n=64) and each PCG loop
+the card; general: hexkway n=64; scale: the hierarchy of the scale-setup
+driver, saamge_tpu_torch/drivers/run_scale_setup.py, with the device
+RAP, at n=128 by default) and each PCG loop
 (``eager``: ``graph=False``, every kernel launched from Python and the
 stopping test read each iteration; ``graph``: the default, the prologue
 and each iteration replayed as captured CUDA graphs) one warm-up PCG
@@ -38,7 +41,7 @@ import subprocess
 import sys
 import time
 
-PATHS = ("flagship", "capacity", "contract", "general", "twolevel")
+PATHS = ("flagship", "capacity", "contract", "general", "twolevel", "scale")
 
 
 def device_profile(prof, torch):
@@ -196,6 +199,7 @@ def main() -> int:
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--n", type=int, default=96)
     ap.add_argument("--general-n", type=int, default=64)
+    ap.add_argument("--scale-n", type=int, default=128)
     args = ap.parse_args()
     paths = args.paths.split(",")
     if not set(paths) <= set(PATHS):
@@ -257,6 +261,15 @@ def main() -> int:
         del ml
         bd = torch.as_tensor(b, dtype=torch.float32, device=dev)
         profile_path("general", h, g_solve, bd, torch, out_dir)
+        del h
+        torch.cuda.empty_cache()
+    if "scale" in paths:
+        from saamge_tpu_torch.drivers import run_scale_setup
+        out, run = run_scale_setup.run(["--n", str(args.scale_n),
+                                        "--device-rap", "--solve"])
+        print("[scale] driver=" + json.dumps(out), flush=True)
+        bd = torch.as_tensor(run.b, dtype=torch.float32, device=dev)
+        profile_path("scale", run.h, s_solve, bd, torch, out_dir)
     return 0
 
 

@@ -40,7 +40,15 @@ Phases (one line each; any failure raises and exits non-zero):
                  it the flagship hierarchy, the full-capacity one (mfree +
                  hbm_frugal + bf16 coarsest inverse), the box-
                  contraction one (f32 tent blocks, use_pallas_contract)
-                 and those of phase 9, each on the CPU
+                 and those of phase 9, each on the CPU; then the device
+                 Galerkin product (setup/device_rap.py) of its level 0 on
+                 the card against the host f64 product P^T A P (the
+                 setup's tg0.Ac, recomputed and timed here; within
+                 1e-5 of max |Ac|, equal nnz; its seconds beside the host
+                 product's, timed in the same run, bs, the reckoned and
+                 the peak device bytes) and the device element matrices
+                 (fem/assemble_device.py) of the n=96 mesh against the
+                 host f64 ones (within 1e-5 relative; elements/s of both)
   3b. parity  -- the host and the device setup of a small flagship (n=32,
                  superbricks (2,2,2): the uniform pipeline) and a small
                  hexkway (n=24: the generic batched eigensolver): per AE
@@ -110,6 +118,21 @@ Phases (one line each; any failure raises and exits non-zero):
                  (``mid_resident=False``: midmv root and residual, no mid
                  chain), the last two within one iteration of the
                  flagship's
+  10. scale   -- the scale-setup driver
+                 (saamge_tpu_torch/drivers/run_scale_setup.py) called in
+                 this process with --n 128 --device-rap --solve (2,146,689
+                 dofs, superbricks (4,4,4), setup, device RAP and compile
+                 on the card); its JSON line; the setup's device Ac against
+                 the host f64 product of the same level 0 (within 1e-5 of
+                 max |Ac|, equal nnz) and against a second device product
+                 (bit for bit; its seconds, bs and peak device bytes);
+                 each kernel of the path against its plain version at
+                 the hierarchy's own shapes (the stencil's spmv, the
+                 sweep, window R and P, the packed mid passes' residual
+                 and root, or the resident mid chain); then the slice of
+                 its hierarchy against its CPU copy (V-cycle within
+                 1e-4, PCG within one iteration) and within the path's
+                 iteration limits
 Each hierarchy leaves the card before the next arrives, so each path's
 peak device memory is its own, but for ~69 MB a path that stays
 allocated after it (PERF.md §7).  The last two lines are the kernels' JSON
@@ -118,7 +141,8 @@ record and the result line {"ok": true, "device": {...}}.
 Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
 ``--paths`` runs some of flagship, capacity, contract, general,
-twolevel and options;
+twolevel, options and scale; ``--scale-n 200`` runs the scale path at
+the driver's default size (8,120,601 dofs);
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
 no PCG); ``--host-setup`` builds both paths' hierarchies with the host
 setup (device_setup=False; no phase 3b), for the host-against-device
@@ -149,9 +173,12 @@ GENERAL_PCG_MAX = {1e-6: 18, 1e-8: 22}  # host f64 PCG 17 / 21, plus 1
 # the JAX record of the hexkway general run (GENERAL_r05_hexkway.json):
 # coarse dims and PCG iterations at 1e-6 / 1e-8
 GENERAL_JAX = {100: ([61300, 1984], [23, 30])}
+# the scale path's PCG limits at 1e-6 / 1e-8: the card's 22 / 29 at n=128
+# plus 1; at n=200 the JAX record's 29 (PARITY.md) and the card's 39, plus 1
+SCALE_PCG_MAX = {128: {1e-6: 23, 1e-8: 30}, 200: {1e-6: 30, 1e-8: 40}}
 TOLS = (1e-6, 1e-8)
 PATHS = ("flagship", "capacity", "contract", "general", "twolevel",
-         "options")
+         "options", "scale")
 # the paths built on the flagship setup
 STRUCTURED = ("flagship", "capacity", "contract", "twolevel", "options")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
@@ -843,6 +870,203 @@ def twolevel_compile(ml, geo, dev, torch, np, compile_structured):
     return out
 
 
+def rap_check(path, ml, geo, dev, torch):
+    """The device Galerkin product (setup/device_rap.py) of ``ml``'s level
+    0 on the card against the host f64 product P^T A P (tg_coarse_matr of
+    the tent P, timed here): within 1e-5 of max |Ac| and the same nnz.
+    Logs both seconds (the device phase's split into the block
+    contractions and the host CSR assembly), bs, the peak device bytes
+    and the bytes reckoned from the shapes.  Returns (device Ac, host
+    Ac)."""
+    from saamge_tpu_torch.setup.device_rap import structured_rap
+    from saamge_tpu_torch.setup.tg import tg_coarse_matr
+    from saamge_tpu_torch.utils.logging import TIMERS
+    lv0 = ml.levels[0]
+    tg0 = lv0.tg_data
+    t0 = time.perf_counter()
+    Ac_host = tg_coarse_matr(lv0.A, tg0.tent_interp)
+    host_s = time.perf_counter() - t0
+    leave_card(torch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    phases = ("setup.rap_device", "setup.rap_device.blocks",
+              "setup.rap_device.csr")
+    before = {k: TIMERS.total(k) for k in phases}
+    stats = {}
+    Ac = structured_rap(lv0.A, lv0.rels, tg0.tent_interp,
+                        tg0.interp_data.mis_numcoarsedof, geo, device=dev,
+                        stats=stats)
+    split = {k: round(TIMERS.total(k) - before[k], 3) for k in phases}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    bs, NB = stats["bs"], geo.num_bricks
+    ext = 1
+    for b in geo.brick_elems:
+        ext *= b + 3
+    reckoned = {"APq": 4 * bs * ext * NB, "rst6": 4 * bs * geo.box * NB,
+                "blocks": 4 * 27 * bs * bs * NB}
+    diff = float(abs(Ac - Ac_host).max())
+    scale = float(abs(Ac_host).max())
+    log(path + " rap", device_s=json.dumps(split), host_s=f"{host_s:.3f}",
+        bs=bs, coarse_dofs=Ac.shape[0], nnz=Ac.nnz, host_nnz=Ac_host.nnz,
+        rel_diff=f"{diff / scale:.3e}", peak_device_bytes=peak,
+        reckoned_bytes=json.dumps(reckoned),
+        blocks_bytes=stats["blocks_bytes"])
+    if not diff <= 1e-5 * scale or Ac.nnz != Ac_host.nnz:
+        raise RuntimeError(f"{path}: device RAP {diff / scale:.3e} of max "
+                           f"|Ac| off the host product, nnz {Ac.nnz} vs "
+                           f"{Ac_host.nnz}")
+    leave_card(torch)
+    return Ac, Ac_host
+
+
+def assembly_check(n, dev, torch, np, seed=7, contrast=2.0):
+    """The device element matrices (fem/assemble_device.py) of
+    ``hex_mesh(n)`` with the flagship's coefficients on the card against
+    the host f64 batch (fem/assemble.py): within 1e-5 of its max; logs
+    elements/s of both (the device's after a warm-up call, transfers
+    included)."""
+    from saamge_tpu_torch.fem import assemble, assemble_device
+    from saamge_tpu_torch.fem.mesh import hex_mesh
+    mesh = hex_mesh(n)
+    ne = mesh.num_elements
+    coefs = 10.0 ** np.random.default_rng(seed).uniform(-contrast, contrast,
+                                                        ne)
+    assemble_device.diffusion_element_matrices(hex_mesh(4), device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    em_d = assemble_device.diffusion_element_matrices(mesh, coefs,
+                                                      device=dev)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    em_h = assemble.diffusion_element_matrices(mesh, coefs)
+    host_s = time.perf_counter() - t0
+    rel = float(np.abs(em_d - em_h).max() / np.abs(em_h).max())
+    log("assembly", elements=ne, device_s=f"{dev_s:.3f}",
+        device_elements_per_s=f"{ne / dev_s:.4e}", host_s=f"{host_s:.3f}",
+        host_elements_per_s=f"{ne / host_s:.4e}", rel_err=f"{rel:.3e}")
+    if not rel <= 1e-5:
+        raise RuntimeError(f"device element matrices {rel:.3e} off the host")
+
+
+def scale_kernels(h, geo, kern, torch, np, dev):
+    """Each kernel of the scale path against its plain version on the
+    card at the scale hierarchy's own shapes (its operators and tent
+    blocks, vectors from a numpy seed), within the kernel phase's
+    tolerances: the stencil's spmv (the PCG operator), the sweep, window
+    R and P, and the packed mid passes in the modes the V-cycle runs
+    (residual, root), or the resident mid chain.  Untimed; these launches
+    fall before the path's counts are reset."""
+    rng = np.random.default_rng(5)
+
+    def vec(m):
+        return torch.as_tensor(rng.standard_normal(m),
+                               dtype=torch.float32).to(dev)
+
+    A0, A0s = h.A0, h.A0s
+    xh, bh = A0.pad(vec(h.n)), A0.pad(vec(h.n))
+    r_f, xc, x1, b1 = vec(h.n), vec(h.n_flat), vec(h.n_flat), vec(h.n_flat)
+    ga = (geo.bricks, geo.brick_elems)
+    sweep = (A0s, h.taus0, bh, h.dinv0h, xh, True)
+    cases = [
+        ("stencil spmv", 1e-5, lambda: kern["stencil"]("spmv", A0, xh),
+         lambda: kern["stencil_plain"]("spmv", A0, xh)),
+        ("wavefront", 1e-4, lambda: kern["wavefront"](*sweep),
+         lambda: kern["wavefront_plain"](*sweep)),
+        ("window_R", 1e-5, lambda: kern["window_R"](h.Rst, r_f, *ga),
+         lambda: kern["window_R_plain"](h.Rst, r_f, *ga)),
+        ("window_P", 1e-5,
+         lambda: kern["window_P"](h.Rst, xc, *ga, ranges=h.Rst_rng),
+         lambda: kern["window_P_plain"](h.Rst, xc, *ga))]
+    if h.mid_route == "packed":
+        mv = (h.A1_packed, h.doffs, h.rects, geo.bricks, h.bs, x1)
+        for mode, kw in (("residual", {"b": b1}),
+                         ("root", {"b": b1, "dinv": h.dinv1,
+                                   "inv_tau": h.taus1[0]})):
+            cases.append((f"midmv {mode}", 1e-5,
+                          lambda mode=mode, kw=kw: kern["midmv"](*mv, mode,
+                                                                 **kw),
+                          lambda mode=mode, kw=kw: kern["midmv_plain"](
+                              *mv, mode, **kw)))
+    else:
+        chain = (h.A1_blocks, h.A1_tiles, h.mid_plan, h.doffs, h.rects,
+                 geo.bricks, h.taus1, b1, h.dinv1, x1, True)
+        cases.append(("mid_chain", 1e-4, lambda: kern["mid_chain"](*chain),
+                      lambda: kern["mid_chain_plain"](
+                          h.A1_blocks, h.doffs, geo.bricks, h.taus1, b1,
+                          h.dinv1, x1, True)))
+    errs = {}
+    for name, tol, kf, pf in cases:
+        abs_err, rel = rel_err(kf(), pf())
+        errs[name] = rel
+        log("scale kernel", name=name, bricks=geo.num_bricks,
+            max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel:.3e}", tol=tol)
+        if not rel <= tol:
+            raise RuntimeError(f"scale {name}: rel err {rel:.3e} > {tol} "
+                               f"at {geo.num_bricks} bricks")
+    return errs
+
+
+def scale_path(n, brick, dev, wrappers, kern, torch, np, vcycle, pcg,
+               device_profile):
+    """Phase 10: the scale-setup driver at ``n`` with the device RAP and
+    the solve on the card; the setup's device Ac against the host
+    product and, bit for bit, a second device product; the path's
+    kernels against their plain versions at the hierarchy's shapes; the
+    slice of the driver's hierarchy against its CPU copy."""
+    from saamge_tpu_torch.drivers import run_scale_setup
+    from saamge_tpu_torch.solve.structured import BrickGeometry
+    leave_card(torch)
+    t0 = time.perf_counter()
+    out, run = run_scale_setup.run(["--n", str(n), "--brick", str(brick),
+                                    "--device-rap", "--solve"])
+    log("scale", driver_s=f"{time.perf_counter() - t0:.1f}",
+        driver=json.dumps(out))
+    if not (out["device_rap"] and out["rap"].get("bs", 0) > 0):
+        raise RuntimeError("scale: the setup did not take the device RAP")
+    nb = n // brick
+    geo = BrickGeometry((nb,) * 3, (brick,) * 3)
+    Ac_dev, Ac_host = rap_check("scale", run.ml, geo, dev, torch)
+    setup_Ac = run.ml.levels[0].tg_data.Ac
+    scale = float(abs(Ac_host).max())
+    d_host = float(abs(setup_Ac - Ac_host).max()) / scale
+    same = (setup_Ac != Ac_dev).nnz == 0 and setup_Ac.nnz == Ac_dev.nnz
+    log("scale", setup_ac_vs_host_rel_diff=f"{d_host:.3e}",
+        setup_ac_bit_equal_device=same, setup_ac_nnz=setup_Ac.nnz)
+    if not (d_host <= 1e-5 and same and setup_Ac.nnz == Ac_host.nnz):
+        raise RuntimeError(f"scale: the setup's Ac {d_host:.3e} off the "
+                           f"host product, bit-equal to the device "
+                           f"product: {same}")
+    del Ac_dev, Ac_host, setup_Ac
+    h = run.h
+    scale_kernels(h, geo, kern, torch, np, dev)
+    leave_card(torch)
+    t0 = time.perf_counter()
+    h_cpu = copy.deepcopy(h).to("cpu")
+    log("scale", cpu_copy_s=f"{time.perf_counter() - t0:.1f}")
+    res = run_slice("scale", h, h_cpu, run.b, run.ml.levels[0].A, wrappers,
+                    torch, np, vcycle, pcg, device_profile)
+    del h_cpu
+    mid = "mid_chain" if h.mid_route == "resident" else "midmv"
+    check_launches("scale", res["launches"],
+                   ("stencil", "wavefront", "window_R", "window_P", mid),
+                   ("mfree", "mfree_chain", "smoother", "contract_R",
+                    "contract_P", {"mid_chain": "midmv",
+                                   "midmv": "mid_chain"}[mid]))
+    if res["it"][0] != out["pcg_iters"]:
+        raise RuntimeError(f"scale: slice PCG {res['it'][0]} vs the driver's "
+                           f"{out['pcg_iters']} iterations at 1e-6")
+    limits = SCALE_PCG_MAX.get(n, {})
+    log("scale", mid_route=h.mid_route, pcg_iters=res["it"],
+        pcg_limits=json.dumps(limits), driver_vcycle_ms=out["vcycle_ms"],
+        driver_pcg_iters=out["pcg_iters"])
+    for tol, it in zip(TOLS, res["it"]):
+        if it > limits.get(tol, it):
+            raise RuntimeError(f"scale n={n}: PCG {it} iterations at {tol} "
+                               f"above {limits[tol]}")
+    return res
+
+
 def leave_card(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -1189,6 +1413,9 @@ def main() -> int:
     ap.add_argument("--general-n", type=int, default=64,
                     help="general-path mesh size (development only; "
                          "default 64)")
+    ap.add_argument("--scale-n", type=int, default=128,
+                    help="scale-path mesh size (default 128; the driver's "
+                         "own default is 200)")
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="development only: a comma list of "
                          f"{', '.join(PATHS)} (default all)")
@@ -1333,6 +1560,8 @@ def main() -> int:
                 device_setup=device_setup, device=dev), dev, torch)
         dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
         A_host = ml.levels[0].A
+        rap_check("flagship", ml, geo, dev, torch)
+        assembly_check(args.n, dev, torch, np)
         t0 = time.perf_counter()
         # the flagship's CPU copy always: its layout, kernel inputs and
         # library yardsticks serve every structured path
@@ -1828,6 +2057,13 @@ def main() -> int:
             leave_card(torch)
     if set(STRUCTURED) & set(paths):
         del h_cpu, A_host, opt_cpu
+
+    # 10. scale ---------------------------------------------------------
+    if "scale" in paths and full:
+        results["scale"] = scale_path(args.scale_n, args.brick, dev, wrappers,
+                                      kern, torch, np, struct_vcycle_apply,
+                                      s_pcg, device_profile)
+        leave_card(torch)
 
     path_of = {"mfree": "capacity", "mfree_chain": "capacity",
                "midmv": "capacity",

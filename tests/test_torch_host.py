@@ -142,10 +142,16 @@ def test_host_copy_differs_only_in_imports(module):
 
 def test_port_imports_no_jax_package():
     files = glob.glob(os.path.join(REPO, "saamge_tpu_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py"),
+                                         os.path.join(REPO, "chip_profile.py")]
     assert len(files) > 30
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {f"saamge_tpu_torch/{m}" for m in HOST_COPIES} <= rel
+    # the scale setup's device modules and the drivers' package
+    assert {"saamge_tpu_torch/setup/device_rap.py",
+            "saamge_tpu_torch/fem/assemble_device.py",
+            "saamge_tpu_torch/drivers/__init__.py",
+            "saamge_tpu_torch/drivers/run_scale_setup.py"} <= rel
     bad = [(os.path.relpath(f, REPO), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("saamge_tpu", "jax", "jaxlib")]
