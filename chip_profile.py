@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device-time profile of the port's solve paths on one NVIDIA card.
 
-    python3 chip_profile.py                     # all six paths
+    python3 chip_profile.py                     # all seven paths
     python3 chip_profile.py --paths general     # one path
     python3 chip_profile.py --paths scale --scale-n 200   # 8.12M dofs
 
@@ -9,7 +9,9 @@ For each path (flagship, capacity, contract, twolevel: the n=96
 structured hierarchies of chip_smoke.py, the two-level one compiled on
 the card; general: hexkway n=64; scale: the hierarchy of the scale-setup
 driver, saamge_tpu_torch/drivers/run_scale_setup.py, with the device
-RAP, at n=128 by default) and each PCG loop
+RAP, at n=128 by default; sharded: the flagship hierarchy split over 4
+shards of the card, parallel/structured_sharded.py, as ``sharded4``)
+and each PCG loop
 (``eager``: ``graph=False``, every kernel launched from Python and the
 stopping test read each iteration; ``graph``: the default, the prologue
 and each iteration replayed as captured CUDA graphs) one warm-up PCG
@@ -17,7 +19,10 @@ solve at 1e-6 (for the graph loop, the capture), then one PCG solve at
 1e-6 under ``torch.profiler``.  Prints per path and loop the wall time
 of the traced solve, the device busy time (the union of the kernel
 intervals), the span from the first kernel's start to the last one's
-end, the idle share 1 - busy / span, the device kernel records per PCG
+end, the idle share 1 - busy / span, the exchange share (device time of
+same-dtype device copies and concatenations over busy: on the sharded
+path its halo fills and exchanges, with the PCG's few state copies),
+the device kernel records per PCG
 iteration, the host's kernel launches and graph launches per iteration
 (the runtime calls in the trace), and the device time per kernel name
 (calls, total, mean), largest first.  For the graph loop also: the
@@ -41,7 +46,12 @@ import subprocess
 import sys
 import time
 
-PATHS = ("flagship", "capacity", "contract", "general", "twolevel", "scale")
+PATHS = ("flagship", "capacity", "contract", "general", "twolevel", "scale",
+         "sharded")
+# the device records of the sharded path's halo fills and exchanges:
+# same-dtype copies (a halo plane, P's first plane) and concatenations
+# (the all-gathers, the mid's brick layers)
+EXCHANGE_KERNELS = ("Memcpy DtoD", "CatArrayBatchedCopy")
 
 
 def device_profile(prof, torch):
@@ -116,11 +126,14 @@ def trace_solve(solve, h, b, torch):
                        "mean_us": t / c} for k, (c, t) in by_name.items()),
                      key=lambda r: -r["total_us"])
     launches = sum(c for c, _ in by_name.values())
+    exchange_us = sum(t for k, (_, t) in by_name.items()
+                      if any(w in k for w in EXCHANGE_KERNELS))
     host_k, host_g = host_launches(prof, torch)
     per = max(it, 1)
     return {"pcg_iters": it, "wall_ms": wall * 1e3,
             "device_busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "idle_share": 1.0 - busy / span if span else None,
+            "exchange_share": exchange_us / busy if busy else None,
             "launches": launches, "launches_per_iter": launches / per,
             "host_kernel_launches_per_iter": host_k / per,
             "host_graph_launches_per_iter": host_g / per,
@@ -179,6 +192,7 @@ def profile_path(name, h, solve, b, torch, out_dir):
               f"device_busy_ms={r['device_busy_ms']:.3f} "
               f"span_ms={r['span_ms']:.3f} "
               f"idle_share={r['idle_share']:.4f} "
+              f"exchange_share={r['exchange_share']:.4f} "
               f"launches_per_iter={r['launches_per_iter']:.1f} "
               f"host_kernel_launches_per_iter="
               f"{r['host_kernel_launches_per_iter']:.1f} "
@@ -213,6 +227,9 @@ def main() -> int:
     from saamge_tpu_torch import (compile_hierarchy, compile_structured,
                                   flagship_problem, general_problem,
                                   pcg_solve, struct_pcg_solve)
+    from saamge_tpu_torch.parallel.mesh import ShardMesh
+    from saamge_tpu_torch.parallel.structured_sharded import (
+        make_struct_sharded_pcg, scatter_fine, shard_structured)
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -226,13 +243,18 @@ def main() -> int:
     def s_solve(h, b, graph=True):
         return struct_pcg_solve(h, b, rel_tol=1e-6, graph=graph)
 
+    def sharded_solve(hs, b, graph=True):
+        x, it = make_struct_sharded_pcg(hs, graph=graph)(b, 1e-6)
+        return x, it, None
+
     def g_solve(h, b, graph=True):
         return pcg_solve(h, b, rel_tol=1e-6, max_iter=300, graph=graph)
 
-    if {"flagship", "capacity", "contract", "twolevel"} & set(paths):
+    if {"flagship", "capacity", "contract", "twolevel",
+            "sharded"} & set(paths):
         ml, b, geo, supers, fac = flagship_problem(
             n=args.n, mfree=True, device_setup=True, device=dev)
-        kw = {"flagship": {},
+        kw = {"flagship": {}, "sharded": {},
               "capacity": {"mfree": fac, "hbm_frugal": True,
                            "ainv_dtype": torch.bfloat16},
               "contract": {"rp_dtype": torch.float32,
@@ -251,7 +273,14 @@ def main() -> int:
         bd = torch.as_tensor(b, dtype=torch.float32, device=dev)
         for p, h_cpu in cpu.items():
             h = copy.deepcopy(h_cpu).to(dev)
-            profile_path(p, h, s_solve, bd, torch, out_dir)
+            if p == "sharded":
+                # the flagship hierarchy on 4 shards of the card
+                hs = shard_structured(h, ShardMesh([dev] * 4))
+                profile_path("sharded4", hs, sharded_solve,
+                             scatter_fine(hs, bd), torch, out_dir)
+                del hs
+            else:
+                profile_path(p, h, s_solve, bd, torch, out_dir)
             del h
             torch.cuda.empty_cache()
     if "general" in paths:

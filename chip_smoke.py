@@ -118,6 +118,24 @@ Phases (one line each; any failure raises and exits non-zero):
                  (``mid_resident=False``: midmv root and residual, no mid
                  chain), the last two within one iteration of the
                  flagship's
+  9b. sharded -- the flagship hierarchy split into x-slabs over a shard
+                 mesh of the one card (saamge_tpu_torch/parallel/): the
+                 device setup's sharded Galerkin product (4 shards)
+                 against the host and the one-device products (phase 3);
+                 the stencil (three modes, f32 and bf16 diagonals) and
+                 window R / P on 4-shard slabs against their plain
+                 versions (records ``stencil_slab``, ``window_R_slab``,
+                 ``window_P_slab``), window R / P on slabs of 1, BX/4
+                 and BX/2 brick layers, and the stencil on a one-plane
+                 slab, equal bit for bit to the single-card rows; then
+                 the slice on 1, 2 and 4 shards (the V-cycle against a
+                 CPU-sharded copy and within 1e-3 of the single-card
+                 flagship's, graph against eager, equal iterations at
+                 every shard count, within one of the flagship's), the
+                 replicated mid on 4 shards (resident chain and packed
+                 passes: their launches, graph = eager), and the
+                 production-regime check (parallel/checks.py) at ns=48,
+                 bricks of 6, on 2 and 4 shards
   10. scale   -- the scale-setup driver
                  (saamge_tpu_torch/drivers/run_scale_setup.py) called in
                  this process with --n 128 --device-rap --solve (2,146,689
@@ -141,14 +159,16 @@ record and the result line {"ok": true, "device": {...}}.
 Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
 ``--paths`` runs some of flagship, capacity, contract, general,
-twolevel, options and scale; ``--scale-n 200`` runs the scale path at
+twolevel, options, sharded and scale; ``--scale-n 200`` runs the scale path at
 the driver's default size (8,120,601 dofs);
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
 no PCG); ``--host-setup`` builds both paths' hierarchies with the host
 setup (device_setup=False; no phase 3b), for the host-against-device
 setup time; ``--general-n 100`` logs the general path against the JAX
 record (coarse dims [61300, 1984], PCG 23 / 30);
-``--synthetic`` skips every host setup and times the stencil,
+``--cards 4`` (a machine of four cards) runs only the flagship setup
+and the 4-shard solve spread over the cards against 4 shards of one
+card; ``--synthetic`` skips every host setup and times the stencil,
 the sweep, the resident mid chain and the matrix-free pass and chain on
 n=96-shaped operands made from a numpy seed (with each chain's time per
 level and the time of one grid barrier of its grid), and the general
@@ -178,9 +198,10 @@ GENERAL_JAX = {100: ([61300, 1984], [23, 30])}
 SCALE_PCG_MAX = {128: {1e-6: 23, 1e-8: 30}, 200: {1e-6: 30, 1e-8: 40}}
 TOLS = (1e-6, 1e-8)
 PATHS = ("flagship", "capacity", "contract", "general", "twolevel",
-         "options", "scale")
+         "options", "sharded", "scale")
 # the paths built on the flagship setup
-STRUCTURED = ("flagship", "capacity", "contract", "twolevel", "options")
+STRUCTURED = ("flagship", "capacity", "contract", "twolevel", "options",
+              "sharded")
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_S = 67e12          # H100 SXM f32 outside the tensor cores
 T0 = time.perf_counter()
@@ -276,6 +297,28 @@ def sparse_csr(rows, cols, vals, shape, torch):
     """A CSR matrix from COO triplets (duplicates summed)."""
     return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
                                    shape).coalesce().to_sparse_csr()
+
+
+def tent_csr(Rst, bricks, brick_elems, torch):
+    """The tent restriction of ``Rst`` on a brick grid as a (bs*NB, n)
+    CSR matrix and its transpose, with the values of Rst widened to f32
+    (n: the grid's nodes)."""
+    from saamge_tpu_torch.ops.window import box_index
+    bs, box, NB = Rst.shape
+    dev = Rst.device
+    ndof = 1
+    for B, b in zip(bricks, brick_elems):
+        ndof *= B * b + 1
+    idx = box_index(bricks, brick_elems, dev)
+    rows = (torch.arange(bs, device=dev)[:, None, None] * NB
+            + torch.arange(NB, device=dev)[None, None, :]) \
+        .expand(bs, box, NB)
+    cols = idx[None].expand(bs, box, NB)
+    vals = Rst.to(torch.float32)
+    keep = vals != 0
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    return (sparse_csr(rows, cols, vals, (bs * NB, ndof), torch),
+            sparse_csr(cols, rows, vals, (ndof, bs * NB), torch))
 
 
 def run_kernels(cases, torch, device_profile):
@@ -1405,6 +1448,304 @@ def synthetic(dev, torch, np, k, device_profile, build):
     return records
 
 
+# the sharded path (phase 9b): shard counts of its slices on one card
+SHARDS = (1, 2, 4)
+NOT_SHARDED = ("wavefront", "mfree", "mfree_chain", "smoother", "contract_R",
+               "contract_P")
+
+
+def sharded_solves(torch):
+    """The sharded solve behind run_slice's interface of flat vectors:
+    ``vcycle(hs, b)`` and ``pcg(hs, b, tol)`` scatter b over the shards
+    and gather the result."""
+    from saamge_tpu_torch.parallel.structured_sharded import (
+        gather_fine, make_struct_sharded_pcg, make_struct_sharded_vcycle,
+        scatter_fine)
+
+    def vcycle(hs, b, graph=True):
+        return gather_fine(hs, make_struct_sharded_vcycle(hs, graph)(
+            scatter_fine(hs, b)))
+
+    def pcg(hs, b, tol, graph=True):
+        x, it = make_struct_sharded_pcg(hs, graph=graph)(
+            scatter_fine(hs, b), tol)
+        return gather_fine(hs, x), it, None
+
+    return vcycle, pcg
+
+
+def sharded_kernels(h, kern, torch, np, dev, vec, device_profile):
+    """Phase 9b's kernels against their plain versions at the slab
+    shapes of the flagship hierarchy ``h`` on 4 shards of ``dev``: the
+    stencil on an interior slab (halos filled from both neighbours) in
+    its three modes with the f32 and the bf16 diagonals, window R / P on
+    the slab's bricks (records), window R / P on slabs of 1, BX/4 and
+    BX/2 brick layers, and the stencil on a one-plane slab (two node
+    planes), whose halo holds one neighbour plane a side: equal bit for
+    bit to the same rows of the single-card pass.  Returns the
+    records."""
+    from saamge_tpu_torch.parallel.mesh import ShardMesh
+    from saamge_tpu_torch.parallel.structured_sharded import (
+        scatter_fine, shard_structured)
+    DIA, stencil_h, stencil_plain = (kern["DIA"], kern["stencil"],
+                                     kern["stencil_plain"])
+    window_R, window_P = kern["window_R"], kern["window_P"]
+    R_plain, P_plain = kern["window_R_plain"], kern["window_P_plain"]
+    geo = h.geo
+    hs = shard_structured(h, ShardMesh([dev] * 4))
+    st, s = hs.st, hs.shards[1]          # an interior shard
+    A0 = DIA(s.A0_vals, st.offsets, st.real)
+    A0s = DIA(s.A0s_vals, st.offsets, st.real)
+    xh = hs.halo_fill(hs.pad(scatter_fine(hs, vec(h.n))))[1]
+    bh = hs.pad(scatter_fine(hs, vec(h.n)))[1]
+    r, xc = vec(st.real), vec(st.bs * st.nb_loc)
+    _, BY, BZ = geo.bricks
+    sgeo = ((st.bxl, BY, BZ), geo.brick_elems)
+    hvec = st.real + 2 * st.halo
+    k = len(st.offsets)
+    # the library yardsticks: the slab's rows of A0 as a CSR product on
+    # the haloed x, and the slab's tent as a CSR product
+    rows = torch.arange(st.real, device=dev).repeat(k)
+    cols = (torch.arange(st.real, device=dev)[None] + st.halo
+            + torch.tensor(st.offsets, device=dev)[:, None]).reshape(-1)
+    vals = A0.vals.reshape(-1)
+    keep = vals != 0
+    A_csr = sparse_csr(rows[keep], cols[keep], vals[keep],
+                       (st.real, hvec), torch)
+    Rc, Pc = tent_csr(s.Rst, *sgeo, torch)
+    nnz = Rc.values().numel()
+    tent_work = (nnz * s.Rst.element_size() + (st.real + xc.numel()) * 4,
+                 2 * nnz)
+    records = run_kernels([
+        ("stencil_slab", 1e-5, "stencil.cu", "pallas_stencil.py:61",
+         lambda: stencil_h("spmv", A0, xh),
+         lambda: stencil_plain("spmv", A0, xh),
+         (nbytes(A0.vals) + 2 * hvec * 4, 2 * k * st.real),
+         lambda: A_csr @ xh[:, None]),
+        ("window_R_slab", 1e-5, "window.cu", "pallas_window.py:144",
+         lambda: window_R(s.Rst, r, *sgeo),
+         lambda: R_plain(s.Rst, r, *sgeo), tent_work,
+         lambda: Rc @ r[:, None]),
+        ("window_P_slab", 1e-5, "window.cu", "pallas_window.py:193",
+         lambda: window_P(s.Rst, xc, *sgeo, ranges=s.Rst_rng),
+         lambda: P_plain(s.Rst, xc, *sgeo), tent_work,
+         lambda: Pc @ xc[:, None]),
+    ], torch, device_profile)
+    case = (f"shard 1 of 4 on one card: {st.sp1} node planes "
+            f"({st.real} rows), {st.bxl} x {BY} x {BZ} bricks")
+    for rec, w in zip(records, ("stencil", "window_R", "window_P")):
+        rec.update(wrapper=w, case=case)
+    root_kw = {"bh": bh, "dinvh": s.dinv0h, "inv_tau": st.taus0[0]}
+    modes = (("spmv", {}), ("residual", {"bh": bh}), ("root", root_kw))
+    for name, A in (("stencil_slab_f32", A0), ("stencil_slab_bf16", A0s)):
+        check_modes(name, lambda mode, A=A, **kw: stencil_h(mode, A, xh, **kw),
+                    lambda mode, A=A, **kw: stencil_plain(mode, A, xh, **kw),
+                    modes, torch)
+    BX = geo.bricks[0]
+    bx = geo.brick_elems[0]
+    for bxl in sorted({1, BX // 4, BX // 2}):
+        nb = bxl * BY * BZ
+        cut = slice(nb, 2 * nb)               # the second slab
+        Rst = h.Rst[:, :, cut].contiguous()
+        rng = h.Rst_rng[:, :, cut].contiguous()
+        g = ((bxl, BY, BZ), geo.brick_elems)
+        rr, xcc = vec((bxl * bx + 1) * st.plane), vec(h.bs * nb)
+        _, eR = rel_err(window_R(Rst, rr, *g), R_plain(Rst, rr, *g))
+        _, eP = rel_err(window_P(Rst, xcc, *g, ranges=rng),
+                        P_plain(Rst, xcc, *g))
+        log("sharded kernel", window_bricks=g[0], window_R_rel_err=f"{eR:.3e}",
+            window_P_rel_err=f"{eP:.3e}", tol=1e-5)
+        if not max(eR, eP) <= 1e-5:
+            raise RuntimeError(f"window R / P on {g[0]} bricks: rel err "
+                               f"{eR:.3e} / {eP:.3e}")
+    # a one-plane slab: node planes m and m + 1 of the grid
+    p, halo = st.plane, st.halo
+    lo = (geo.nodes[0] // 2) * p
+    n1 = 2 * p
+    A1 = DIA(h.A0.vals[:, lo:lo + n1].contiguous(), st.offsets, n1)
+    x = vec(h.n)
+    y_glob = stencil_h("spmv", h.A0, h.A0.pad(x))[halo + lo:halo + lo + n1]
+    x1 = torch.zeros(n1 + 2 * halo, device=dev)
+    x1[halo - p:halo + n1 + p] = x[lo - p:lo + n1 + p]
+    y1 = stencil_h("spmv", A1, x1)
+    _, e1 = rel_err(y1, stencil_plain("spmv", A1, x1))
+    same = torch.equal(y1[halo:halo + n1], y_glob)
+    log("sharded kernel", one_plane_slab_rows=n1, halo=halo,
+        filled_rows_a_side=p, rel_err_vs_plain=f"{e1:.3e}",
+        equal_to_single_card_rows=same)
+    if not (e1 <= 1e-5 and same):
+        raise RuntimeError(f"one-plane slab stencil: rel err {e1:.3e}, "
+                           f"equal to the single-card rows: {same}")
+    return records
+
+
+def sharded_rap_check(ml, geo, dev, torch, Ac_dev, Ac_host, P=4):
+    """The sharded Galerkin product of ``ml``'s level 0 over ``P`` shards
+    of ``dev`` against the host f64 product (within 1e-5 of max |Ac|,
+    equal nnz) and the one-device product (within 1e-6); logs its
+    seconds."""
+    from saamge_tpu_torch.parallel.mesh import ShardMesh
+    from saamge_tpu_torch.setup.device_rap import sharded_structured_rap
+    lv0 = ml.levels[0]
+    tg0 = lv0.tg_data
+    leave_card(torch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    Ac = sharded_structured_rap(lv0.A, lv0.rels, tg0.tent_interp,
+                                tg0.interp_data.mis_numcoarsedof, geo,
+                                ShardMesh([dev] * P))
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    scale = float(abs(Ac_host).max())
+    d_host = float(abs(Ac - Ac_host).max()) / scale
+    d_one = float(abs(Ac - Ac_dev).max()) / scale
+    log("sharded rap", shards=P, seconds=f"{sec:.3f}", nnz=Ac.nnz,
+        host_nnz=Ac_host.nnz, rel_diff_host=f"{d_host:.3e}",
+        rel_diff_one_device=f"{d_one:.3e}", peak_device_bytes=peak)
+    if not (d_host <= 1e-5 and d_one <= 1e-6 and Ac.nnz == Ac_host.nnz):
+        raise RuntimeError(f"sharded RAP: {d_host:.3e} / {d_one:.3e} of "
+                           f"max |Ac| off the host / one-device product, nnz "
+                           f"{Ac.nnz} vs {Ac_host.nnz}")
+    leave_card(torch)
+
+
+def multi_card(h, cards, bd, vcycle, pcg, torch):
+    """The 4-shard solve, distributed and replicated mid, with shard d on
+    card d % ``cards`` against the same on one card: V-cycle, PCG
+    iterations and x bit for bit, eager loops; logs the eager ms an
+    iteration of both."""
+    from saamge_tpu_torch.parallel.mesh import ShardMesh
+    from saamge_tpu_torch.parallel.structured_sharded import shard_structured
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--cards {cards}: {torch.cuda.device_count()} "
+                           "cards here")
+    one = ShardMesh([bd.device] * 4)
+    spread = ShardMesh([torch.device("cuda", d % cards) for d in range(4)])
+    for rep in (None, True):
+        out = {}
+        for name, mesh in (("one_card", one), ("cards", spread)):
+            hs = shard_structured(h, mesh, mid_replicated=rep)
+            y = vcycle(hs, bd, graph=False)
+            for d in range(cards):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            x, it, _ = pcg(hs, bd, 1e-8, graph=False)
+            for d in range(cards):
+                torch.cuda.synchronize(d)
+            out[name] = (y, x, it,
+                         (time.perf_counter() - t0) * 1e3 / max(it, 1))
+            del hs
+        same = [torch.equal(a, b) for a, b in zip(out["cards"][:2],
+                                                  out["one_card"][:2])]
+        log("sharded4 cards", cards=cards, mid_replicated=bool(rep),
+            devices=[str(d) for d in spread.devices],
+            vcycle_bit_equal=same[0], x_bit_equal=same[1],
+            pcg_iters_1e8=(out["cards"][2], out["one_card"][2]),
+            eager_ms_per_iter=(f"{out['cards'][3]:.4f}",
+                               f"{out['one_card'][3]:.4f}"))
+        if not (all(same) and out["cards"][2] == out["one_card"][2]):
+            raise RuntimeError(f"4 shards on {cards} cards differ from 4 "
+                               f"shards on one card (mid_replicated={rep})")
+
+
+def sharded_path(h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
+                 device_profile, flag_its, device_setup):
+    """Phase 9b: the flagship hierarchy ``h`` (on the card) sharded over
+    1, 2 and 4 shards of its card, each through the slice (run_slice:
+    the V-cycle against the CPU-sharded copy and eager against graph,
+    PCG by both loops with the graph loop's kernel records; no CPU PCG),
+    its V-cycle within 1e-3 of the single-card flagship's, equal PCG
+    iterations at every shard count and within 1 of ``flag_its`` (the
+    flagship's, when it ran); then the replicated mid at 4 shards on the
+    resident route (``h``) and the packed route (``hp``): their launches
+    and graph / eager iterations and x; then the production-regime check
+    at ns=48, bricks of 6, on 2 and 4 shards.  Returns the 4-shard
+    slice's result."""
+    from saamge_tpu_torch.parallel.checks import \
+        production_regime_sharded_check
+    from saamge_tpu_torch.parallel.mesh import ShardMesh
+    from saamge_tpu_torch.parallel.structured_sharded import (
+        mid_bytes_per_device, shard_structured)
+    from saamge_tpu_torch.solve.structured import struct_vcycle_apply
+    dev = next(h.buffers()).device
+    vcycle, pcg = sharded_solves(torch)
+    bd = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+    y_flag = struct_vcycle_apply(h, bd).cpu()
+    its, out = {}, None
+    for P in SHARDS:
+        path = f"sharded{P}"
+        hs = shard_structured(h, ShardMesh([dev] * P))
+        hs_cpu = shard_structured(h_cpu, ShardMesh(["cpu"] * P))
+        # the distributed mid rounds x to the bf16 blocks' dtype at every
+        # mid product (as JAX's), so an f32 sum order that differs
+        # between card and CPU moves a rounded entry by up to one bf16
+        # step: the V-cycle holds to the CPU copy's within 2^-8, as the
+        # dense mid's does (phase 9)
+        res = run_slice(path, hs, hs_cpu, b_np, A_host, wrappers, torch, np,
+                        vcycle, pcg, device_profile, cpu_pcg=False,
+                        cpu_tol=2.0 ** -8)
+        check_launches(path, res["launches"],
+                       ("stencil", "window_R", "window_P"),
+                       NOT_SHARDED + ("mid_chain", "midmv"))
+        _, v_rel = rel_err(res["vcycle"], y_flag)
+        its[P] = res["it"]
+        log(path, shards=P, pcg_iters=res["it"],
+            vcycle_vs_flagship_rel_diff=f"{v_rel:.3e}",
+            mid_bytes=json.dumps(mid_bytes_per_device(hs)))
+        if not v_rel <= 1e-3:
+            raise RuntimeError(f"{path}: V-cycle {v_rel:.3e} off the "
+                               "single-card flagship's")
+        out = res
+        del hs, hs_cpu
+        leave_card(torch)
+    if len(set(its.values())) != 1:
+        raise RuntimeError(f"sharded PCG iterations differ by shard count: "
+                           f"{its}")
+    if flag_its is not None and any(
+            abs(a - c) > 1 for a, c in zip(flag_its, out["it"])):
+        raise RuntimeError(f"sharded PCG {out['it']} vs flagship {flag_its}")
+    for route, hh, mid_kernel in (("resident", h, "mid_chain"),
+                                  ("packed", hp, "midmv")):
+        path = f"sharded4 replicated {route}"
+        hs = shard_structured(hh, ShardMesh([dev] * 4), mid_replicated=True)
+        for w in wrappers.values():
+            w.launches = 0
+        _, it6, _ = pcg(hs, bd, 1e-6, graph=False)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        xe, it8e, _ = pcg(hs, bd, 1e-8, graph=False)
+        xg, it8g, _ = pcg(hs, bd, 1e-8)
+        _, v_rel = rel_err(vcycle(hs, bd).cpu(), y_flag)
+        log(path, mid_route=hh.mid_route, launches=launches,
+            pcg_iters=(it6, it8g), eager_iters_1e8=it8e,
+            x_graph_equals_eager=torch.equal(xg, xe),
+            vcycle_vs_flagship_rel_diff=f"{v_rel:.3e}",
+            mid_bytes=json.dumps(mid_bytes_per_device(hs)))
+        check_launches(path, launches,
+                       ("stencil", "window_R", "window_P", mid_kernel),
+                       NOT_SHARDED)
+        if hh.mid_route != route or it8g != it8e or not torch.equal(xg, xe):
+            raise RuntimeError(f"{path}: route {hh.mid_route}, graph {it8g} "
+                               f"vs eager {it8e} iterations or x differs")
+        if not v_rel <= 1e-3 or any(abs(a - c) > 1 for a, c in
+                                    zip(out["it"], (it6, it8g))):
+            raise RuntimeError(f"{path}: V-cycle {v_rel:.3e} off the "
+                               f"flagship's, PCG {(it6, it8g)} vs "
+                               f"{out['it']}")
+        del hs
+        leave_card(torch)
+    for P in (2, 4):
+        t0 = time.perf_counter()
+        chk = production_regime_sharded_check(
+            ShardMesh([dev] * P), ns=48, brick=6, device_setup=device_setup)
+        log("sharded production", seconds=f"{time.perf_counter() - t0:.1f}",
+            **{k: (json.dumps(v) if isinstance(v, dict) else v)
+               for k, v in chk.items()})
+        leave_card(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96,
@@ -1426,6 +1767,11 @@ def main() -> int:
                     help="development only: no host setup; time the "
                          "stencil and the sweep on seeded n=96-shaped "
                          "operands")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="on a machine of several cards: only the "
+                         "flagship setup and the 4-shard solve with shard "
+                         "d on card d %% CARDS against 4 shards of one "
+                         "card, bit for bit (multi_card)")
     ap.add_argument("--host-setup", action="store_true",
                     help="development only: build both paths' "
                          "hierarchies with the host setup "
@@ -1528,6 +1874,17 @@ def main() -> int:
               ("contract.cu", "contract_P_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
+    if args.cards > 1:
+        ml, b_np, geo, supers = flagship_problem(
+            n=args.n, brick=args.brick,
+            supers=(2, 2, 2) if args.n < 32 else None,
+            device_setup=not args.host_setup, device=dev)
+        h = compile_structured(ml, geo, supers, device=dev)
+        del ml
+        vcycle, pcg = sharded_solves(torch)
+        multi_card(h, args.cards, torch.as_tensor(
+            b_np, dtype=torch.float32, device=dev), vcycle, pcg, torch)
+        return finish([], {}, smi, torch)
     ragged_checks(dev, torch, np, kern)
 
     if args.synthetic:
@@ -1560,7 +1917,10 @@ def main() -> int:
                 device_setup=device_setup, device=dev), dev, torch)
         dims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
         A_host = ml.levels[0].A
-        rap_check("flagship", ml, geo, dev, torch)
+        Ac_dev, Ac_host = rap_check("flagship", ml, geo, dev, torch)
+        if "sharded" in paths:
+            sharded_rap_check(ml, geo, dev, torch, Ac_dev, Ac_host)
+        del Ac_dev, Ac_host
         assembly_check(args.n, dev, torch, np)
         t0 = time.perf_counter()
         # the flagship's CPU copy always: its layout, kernel inputs and
@@ -1583,6 +1943,10 @@ def main() -> int:
                        ("dense_mid", (supers, {"mid_format": "dense"})),
                        ("packed_mid", (supers, {"mid_resident": False})))
                    } if "options" in paths else {}
+        # the replicated mid of the sharded path on the packed route
+        hp_cpu = (opt_cpu.get("packed_mid") or compile_structured(
+            ml, geo, supers, mid_resident=False, device="cpu")) \
+            if "sharded" in paths else None
         compile_s = time.perf_counter() - t0
         if "twolevel" in paths:
             h2_cpu, ainv_f64 = twolevel_compile(ml, geo, dev, torch, np,
@@ -1617,21 +1981,6 @@ def main() -> int:
     if device_setup:
         setup_parity(dev, torch, np, flagship_problem, general_problem)
 
-    def tent_csr(Rst):
-        """The tent restriction as a (bs*NB, n) CSR matrix and its
-        transpose, with the values of Rst widened to f32."""
-        bs = Rst.shape[0]
-        idx = box_index(geo.bricks, geo.brick_elems, dev)
-        rows = (torch.arange(bs, device=dev)[:, None, None] * NB
-                + torch.arange(NB, device=dev)[None, None, :]) \
-            .expand(bs, box, NB)
-        cols = idx[None].expand(bs, box, NB)
-        vals = Rst.to(torch.float32)
-        keep = vals != 0
-        rows, cols, vals = rows[keep], cols[keep], vals[keep]
-        return (sparse_csr(rows, cols, vals, (bs * NB, ndof), torch),
-                sparse_csr(cols, rows, vals, (ndof, bs * NB), torch))
-
     # 4. flagship -------------------------------------------------------
     if "flagship" in paths:
         leave_card(torch)
@@ -1658,7 +2007,7 @@ def main() -> int:
                     geo.bricks, h.taus1)
         A1_csr = card_csr(*mid_coo, (h.n_flat,) * 2)
         root_kw = {"bh": bh, "dinvh": h.dinv0h, "inv_tau": h.taus0[0]}
-        Rc, Pc = tent_csr(h.Rst)
+        Rc, Pc = tent_csr(h.Rst, *geo_args, torch)
         tent_nnz = Rc.values().numel()
         log("library", tent_csr_nnz=tent_nnz, rst_values=h.Rst.numel(),
             A1_csr_nnz=len(mid_coo[2]),
@@ -2055,8 +2404,21 @@ def main() -> int:
             results[name] = opt
             del ho
             leave_card(torch)
+    # 9b. sharded -------------------------------------------------------
+    if "sharded" in paths:
+        h = copy.deepcopy(h_cpu).to(dev)
+        records += sharded_kernels(h, kern, torch, np, dev, vec,
+                                   device_profile)
+        if full:
+            hp = copy.deepcopy(hp_cpu).to(dev)
+            results["sharded"] = sharded_path(
+                h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
+                device_profile, flag["it"] if flag else None, device_setup)
+            del hp
+        del h
+        leave_card(torch)
     if set(STRUCTURED) & set(paths):
-        del h_cpu, A_host, opt_cpu
+        del h_cpu, A_host, opt_cpu, hp_cpu
 
     # 10. scale ---------------------------------------------------------
     if "scale" in paths and full:
@@ -2068,7 +2430,8 @@ def main() -> int:
     path_of = {"mfree": "capacity", "mfree_chain": "capacity",
                "midmv": "capacity",
                "contract_R": "contract", "contract_P": "contract",
-               "smoother": "general"}
+               "smoother": "general", "stencil_slab": "sharded",
+               "window_R_slab": "sharded", "window_P_slab": "sharded"}
     return finish(records, {rec["name"]: results.get(
         path_of.get(rec["name"], "flagship")) for rec in records}, smi,
         torch)
@@ -2080,7 +2443,8 @@ def finish(records, result_of, smi, torch) -> int:
     result line."""
     for rec in records:
         res = result_of.get(rec["name"])
-        rec["launches"] = res["launches"][rec["name"]] if res else None
+        rec["launches"] = (res["launches"][rec.get("wrapper", rec["name"])]
+                           if res else None)
     log("done", seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi)
     print(json.dumps({"kernels": records}))

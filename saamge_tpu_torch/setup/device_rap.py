@@ -25,9 +25,9 @@ and scattered into a scipy CSR for the rest of the (host, f64) setup, so
 Ac differs from the f64 host product at the f32 representation level
 (~1e-6 relative).  It is therefore opt-in (``rap_override``).
 
-Not ported: ``_rap_scan_jit`` (the ``lax.scan`` form that exists only to
-shrink an XLA compile) and ``sharded_structured_rap`` (distribution,
-ROADMAP Queue 1 item 9, raises here)."""
+``sharded_structured_rap`` computes the same product over an x-slab
+shard mesh (parallel/mesh.ShardMesh).  Not ported: ``_rap_scan_jit``
+(the ``lax.scan`` form that exists only to shrink an XLA compile)."""
 
 from __future__ import annotations
 
@@ -312,8 +312,61 @@ def make_structured_rap_override(geo, device="cuda"):
     return override
 
 
-def sharded_structured_rap(*args, **kwargs):
-    """The distributed x-slab RAP (one-brick-layer AP halo exchange):
-    not ported yet (ROADMAP Queue 1 item 9, distribution)."""
-    raise NotImplementedError("sharded_structured_rap: distribution is not "
-                              "ported (ROADMAP Queue 1 item 9)")
+def sharded_structured_rap(A: sp.csr_matrix, rels,
+                           tent_interp: sp.csr_matrix, mis_numcoarsedof,
+                           geo, mesh) -> sp.csr_matrix:
+    """Ac = P^T A P over an x-slab ShardMesh (parallel/mesh.py), the
+    hypre ParCSR RAP analog (interp.cpp:177-228): each shard computes the
+    AP window blocks of its own bricks from its node slab, with the
+    one-node overlap planes of the ext-window halo; exchanges one brick
+    layer of AP with each x-neighbour (``ppermute``); and contracts its
+    own 27 coarse blocks.  The blocks are fetched and assembled into the
+    CSR on the host (``_assemble_csr``), as one controller does in JAX.
+    Raises ValueError as ``structured_rap`` does, and when the shards do
+    not divide the brick layers along x."""
+    with TIMERS.phase("setup.rap_device"):
+        dia, offsets3 = stencil_diagonals(A, geo)
+        if dia is None:
+            raise ValueError(f"A is not stencil-structured: {offsets3}")
+        ndev = mesh.size
+        BX, BY, BZ = geo.bricks
+        if BX % ndev:
+            raise ValueError(f"{ndev} shards do not divide the {BX} brick "
+                             "layers along x")
+        Rst_bm, cd_brick, slot, bs = brick_tent(
+            rels, tent_interp, mis_numcoarsedof, geo)
+        bx, by, bz = be = geo.brick_elems
+        nodes = geo.nodes
+        BXl = BX // ndev
+        slab = BXl * bx
+        k = len(offsets3)
+        vals = dia.vals.reshape(k, *nodes)
+        rst6 = torch.as_tensor(np.ascontiguousarray(
+            Rst_bm.transpose(1, 2, 0))).reshape(
+            bs, bx + 1, by + 1, bz + 1, BX, BY, BZ)
+        del Rst_bm
+        rsts, aps = [], []
+        for d, dev in enumerate(mesh.devices):
+            # node planes [d*slab - 1, (d+1)*slab + 1], zeros off the grid
+            lo = d * slab - 1
+            s0, s1 = max(0, lo), min(nodes[0], lo + slab + 3)
+            v = torch.zeros((k, slab + 3) + tuple(nodes[1:]),
+                            dtype=torch.float32)
+            v[:, s0 - lo:s1 - lo] = vals[:, s0:s1]
+            rsts.append(rst6[..., d * BXl:(d + 1) * BXl, :, :]
+                        .contiguous().to(dev))
+            aps.append(_compute_ap(v.to(dev), rsts[-1], be, offsets3,
+                                   x_prehaloed=True))
+        # one brick layer of AP from each x-neighbour (zeros at the ends)
+        from_left = mesh.ppermute_right([ap[..., -1:, :, :] for ap in aps])
+        from_right = mesh.ppermute_left([ap[..., :1, :, :] for ap in aps])
+        with TIMERS.phase("setup.rap_device.blocks"):
+            blocks = torch.cat([
+                _rap_blocks(torch.cat([lft, ap, rgt], -3), rst, be).cpu()
+                .reshape(27, bs, bs, BXl, BY, BZ)
+                for ap, lft, rgt, rst in zip(aps, from_left, from_right,
+                                             rsts)], 3)
+        del aps, rsts, from_left, from_right
+        with TIMERS.phase("setup.rap_device.csr"):
+            return _assemble_csr(blocks.reshape(27, bs, bs, -1).numpy(),
+                                 cd_brick, slot, bs, geo)

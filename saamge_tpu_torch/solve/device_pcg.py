@@ -61,19 +61,26 @@ def _warm_up(*fns) -> None:
 
 class PCGRunner:
     """The PCG loop of one operator and preconditioner on static state;
-    ``with_x0`` runs the prologue from the initial guess in ``x``."""
+    ``with_x0`` runs the prologue from the initial guess in ``x``.
+    ``dot`` is the inner product (a sharded solve counts the planes that
+    two shards share once, parallel/structured_sharded.py); ``like`` may
+    be a sharded vector (parallel/mesh.ShardTensor), whose shards all
+    hold the same scalars and flag."""
 
     def __init__(self, matvec: Callable, precond: Callable,
-                 like: torch.Tensor, with_x0: bool = False):
+                 like: torch.Tensor, with_x0: bool = False,
+                 dot: Callable = torch.dot):
         self.matvec, self.precond, self.with_x0 = matvec, precond, with_x0
-        dt, dev = like.dtype, like.device
+        self.dot = dot
         self.b, self.x, self.r, self.d, self.Ad = (
-            torch.zeros(like.shape, dtype=dt, device=dev) for _ in range(5))
+            torch.zeros_like(like) for _ in range(5))
         self.nom, self.lim, self.rel_tol, self.abs_tol = (
-            torch.zeros((), dtype=dt, device=dev) for _ in range(4))
-        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+            like.new_zeros(()) for _ in range(4))
+        self.go = like.new_zeros((), dtype=torch.bool)
+        # the flag the host reads: a sharded flag's first shard
+        self.flag = getattr(self.go, "lead", self.go)
         self.graphs = None        # (prologue, body) once captured
-        if dev.type == "cuda":
+        if like.device.type == "cuda":
             self.go_host = torch.zeros((), dtype=torch.bool,
                                        pin_memory=True)
             self.go_ready = torch.cuda.Event()
@@ -85,7 +92,7 @@ class PCGRunner:
             self.x.zero_()
             r = self.b
         z = self.precond(r)
-        nom = torch.dot(z, r)
+        nom = self.dot(z, r)
         self.r.copy_(r)
         self.d.copy_(z)
         self.Ad.copy_(self.matvec(z))
@@ -96,11 +103,11 @@ class PCGRunner:
 
     def body(self) -> None:
         x, r, d, Ad, nom = self.x, self.r, self.d, self.Ad, self.nom
-        alpha = nom / torch.dot(d, Ad)
+        alpha = nom / self.dot(d, Ad)
         x.add_(alpha * d)
         r.sub_(alpha * Ad)
         z = self.precond(r)
-        betanom = torch.dot(r, z)
+        betanom = self.dot(r, z)
         torch.add(z, (betanom / nom) * d, out=d)
         Ad.copy_(self.matvec(d))
         nom.copy_(betanom)
@@ -126,9 +133,9 @@ class PCGRunner:
 
     def _going(self) -> bool:
         """The flag go, read on the host after the work that sets it."""
-        if self.go.device.type != "cuda":
-            return bool(self.go)
-        self.go_host.copy_(self.go, non_blocking=True)
+        if self.flag.device.type != "cuda":
+            return bool(self.flag)
+        self.go_host.copy_(self.flag, non_blocking=True)
         self.go_ready.record()
         self.go_ready.synchronize()
         return bool(self.go_host)
@@ -163,8 +170,7 @@ class GraphedApply:
 
     def __init__(self, fn: Callable, like: torch.Tensor):
         self.fn = fn
-        self.x = torch.zeros(like.shape, dtype=like.dtype,
-                             device=like.device)
+        self.x = torch.zeros_like(like)
         self.graph = self.y = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -211,15 +217,16 @@ def solve_graphs(h: torch.nn.Module) -> SolveGraphs:
 def pcg(h: torch.nn.Module, matvec: Callable, precond: Callable,
         b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         rel_tol: float = 1e-6, abs_tol: float = 0.0, max_iter: int = 200,
-        graph: bool = True):
+        graph: bool = True, dot: Callable = torch.dot):
     """PCG on hierarchy ``h``'s cached runner for b's dtype and device
     (and x0 or none); returns (x, iterations, final (B r, r))."""
-    # the key needs no matvec or preconditioner: a hierarchy has one of
-    # each, and every compile_structured configuration (level count,
-    # coarsest restriction, mid format and route) is a hierarchy of its own
+    # the key needs no matvec, preconditioner or dot: a hierarchy has one
+    # of each, and every compile_structured configuration (level count,
+    # coarsest restriction, mid format and route) and every sharding of
+    # one (parallel/structured_sharded.py) is a hierarchy of its own
     key = ("pcg", b.dtype, b.device, x0 is not None)
     runner = solve_graphs(h).get(
-        key, h, lambda: PCGRunner(matvec, precond, b, x0 is not None))
+        key, h, lambda: PCGRunner(matvec, precond, b, x0 is not None, dot))
     return runner.solve(b, x0, rel_tol, abs_tol, max_iter, graph)
 
 

@@ -18,6 +18,7 @@ from saamge_tpu_torch.api import SpectralAMGSolver
 from saamge_tpu_torch.config import SolverOptions
 from saamge_tpu_torch.fem import assemble
 from saamge_tpu_torch.fem.mesh import hex_mesh
+from saamge_tpu_torch.parallel.mesh import ShardMesh
 from saamge_tpu_torch.setup import device_rap as TR
 from saamge_tpu_torch.solve.structured import BrickGeometry
 from saamge_tpu_torch.topology.part import partition_cartesian_3d
@@ -206,5 +207,8 @@ def test_card_and_sharded_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             TR.make_structured_rap_override(geo)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TR.sharded_structured_rap(None, None, None, None, geo, None)
+    # the sharded product is ported (tests/test_torch_sharded_rap.py); it
+    # raises where the shards do not divide the brick layers along x
+    with pytest.raises(ValueError, match="do not divide"):
+        TR.sharded_structured_rap(sp.identity(729, format="csr"), None,
+                                  None, None, geo, ShardMesh(["cpu"] * 3))

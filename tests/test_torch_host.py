@@ -152,6 +152,9 @@ def test_port_imports_no_jax_package():
             "saamge_tpu_torch/fem/assemble_device.py",
             "saamge_tpu_torch/drivers/__init__.py",
             "saamge_tpu_torch/drivers/run_scale_setup.py"} <= rel
+    # the shard mesh and the sharded structured solve
+    assert {f"saamge_tpu_torch/parallel/{m}.py" for m in
+            ("__init__", "mesh", "structured_sharded", "checks")} <= rel
     bad = [(os.path.relpath(f, REPO), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("saamge_tpu", "jax", "jaxlib")]
