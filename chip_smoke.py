@@ -1121,7 +1121,8 @@ SETUP_PHASES = ("setup.device_pipeline", "setup.device_pipeline.eigh",
                 "setup.device_pipeline.fetch", "setup.device_pipeline.aes",
                 "setup.device_pipeline.rr", "setup.ae_assembly",
                 "setup.local_eigensolves", "setup.local_eigensolves.host",
-                "setup.local_eigensolves.resolve")
+                "setup.local_eigensolves.resolve",
+                "setup.filtered_eig.first", "setup.filtered_eig.rest")
 
 
 def timed_setup(path, build, dev, torch):
@@ -1130,8 +1131,7 @@ def timed_setup(path, build, dev, torch):
     timers' split, the AEs per eigensolver route of each level and the
     peak device bytes.  Returns (build's result, setup seconds)."""
     from saamge_tpu_torch.utils.logging import TIMERS
-    TIMERS.totals.clear()
-    TIMERS.counts.clear()
+    TIMERS.reset()
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -1818,6 +1818,7 @@ def main() -> int:
     from saamge_tpu_torch.ops.window import (box_index, slot_ranges,
                                              window_P, window_P_plain,
                                              window_R, window_R_plain)
+    from saamge_tpu_torch.utils.logging import TIMERS
     wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
                 "window_R": window_R, "window_P": window_P,
                 "mid_chain": mid_chain, "mfree": mfree_h,
@@ -1859,7 +1860,8 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------
     _build.load()
-    log("build", seconds=f"{_build.build_seconds:.2f}",
+    log("build", seconds=f"{TIMERS.total('kernels.load'):.2f}",
+        builds=TIMERS.counters.get("kernels.builds", 0),
         sources=",".join(os.path.relpath(p) for p in _build.sources()),
         flags=" ".join(_build.NVCC_FLAGS))
     # (entry, registers, static shared bytes, spill stores, spill loads)

@@ -364,8 +364,7 @@ def run(argv=None):
     or None)."""
     args = parse_args(argv)
     dev = card_or_cpu(args.device)
-    TIMERS.totals.clear()
-    TIMERS.counts.clear()
+    TIMERS.reset()
     trace = RSSTrace() if args.rss_trace else None
     try:
         peaks = DevicePeaks(dev)

@@ -18,9 +18,10 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
+
+from saamge_tpu_torch.utils.logging import TIMERS
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,7 +35,6 @@ GRID_MAX = (2 ** 31 - 1, 65535)
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None          # wall time of the build in this process
 ptxas_log = {}                # source name -> nvcc -Xptxas -v report
 
 
@@ -134,18 +134,20 @@ def _compile(so: str) -> None:
 
 
 def load():
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds
+    """Build (once per source hash) and load the kernel library: the
+    phase ``kernels.load`` of utils/logging.TIMERS, and one count of
+    ``kernels.builds`` when nvcc runs."""
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        t0 = time.perf_counter()
-        so = os.path.join(BUILD_DIR, f"libsaamge_kernels_{_digest()}.so")
-        if not os.path.exists(so):
-            _compile(so)
-        lib = ctypes.CDLL(so)
-        _declare(lib)
-        build_seconds = time.perf_counter() - t0
+        with TIMERS.phase("kernels.load"):
+            so = os.path.join(BUILD_DIR, f"libsaamge_kernels_{_digest()}.so")
+            if not os.path.exists(so):
+                _compile(so)
+                TIMERS.count("kernels.builds")
+            lib = ctypes.CDLL(so)
+            _declare(lib)
         _lib = lib
         return lib
 

@@ -85,7 +85,9 @@ def padded_eigh_stack(mats: Sequence[np.ndarray], nmax: int,
 
 
 def count_route(routes: Optional[dict], key: str, k: int) -> None:
-    """Add k AEs to a route's count (``routes`` may be None)."""
+    """Add k AEs to a route's count (``routes`` may be None) and to the
+    counter ``setup.eig_route.<key>`` of utils/logging.TIMERS."""
+    TIMERS.count("setup.eig_route." + key, k)
     if routes is not None:
         routes[key] = routes.get(key, 0) + k
 

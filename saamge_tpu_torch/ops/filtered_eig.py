@@ -30,13 +30,11 @@ host solver.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import scipy.linalg as sla
 import torch
 
-from saamge_tpu_torch.utils.logging import sa_print
+from saamge_tpu_torch.utils.logging import TIMERS
 
 # max relative eigenpair residual (||Mx - wx|| / sigma) tolerated from
 # the filtered solver; converged output sits at ~1e-4 (f32 + leakage).
@@ -131,15 +129,14 @@ def batched_smallest_eigs(M, m: int, degree: int = 16, rounds: int = 4,
         rng = np.random.default_rng(seed)
     X0 = torch.as_tensor(rng.standard_normal((B, n, m)),
                          dtype=M.dtype).to(M.device)
-    t0 = time.perf_counter()
-    X, sigma, T1, bad = _first(M, X0, a_frac, degree)
-    del X0
-    T1h = _host(T1)
-    sigma_h = _host(sigma)
-    ok = np.isfinite(T1h).all(axis=(1, 2)) & ~bad.cpu().numpy()
-    T1h[~ok] = 0.0
-    ew = np.linalg.eigvalsh(0.5 * (T1h + T1h.transpose(0, 2, 1)))
-    sa_print(5, "filtered_eig first(): %.1fs", time.perf_counter() - t0)
+    with TIMERS.phase("setup.filtered_eig.first"):
+        X, sigma, T1, bad = _first(M, X0, a_frac, degree)
+        del X0
+        T1h = _host(T1)
+        sigma_h = _host(sigma)
+        ok = np.isfinite(T1h).all(axis=(1, 2)) & ~bad.cpu().numpy()
+        T1h[~ok] = 0.0
+        ew = np.linalg.eigvalsh(0.5 * (T1h + T1h.transpose(0, 2, 1)))
     # adaptive cutoff: just above the m-th Ritz value but CLAMPED well
     # below sigma -- with m much wider than the wanted low cluster the
     # m-th Ritz value sits in the spectral bulk, and a cutoff near sigma
@@ -147,13 +144,12 @@ def batched_smallest_eigs(M, m: int, degree: int = 16, rounds: int = 4,
     # of the bulk; the low cluster (what the theta cut uses) converges
     # fastest.
     a = np.minimum(np.maximum(ew[:, -1] * 1.5, 1e-8), sigma_h * 0.05)
-    t0 = time.perf_counter()
-    X, T, G, bad2 = _rest(M, X, torch.as_tensor(a, dtype=M.dtype)
-                          .to(M.device), sigma, degree, rounds)
-    T_host, G_host = _host(T), _host(G)
-    ok &= ~bad2.cpu().numpy() & np.isfinite(T_host).all(axis=(1, 2)) \
-        & np.isfinite(G_host).all(axis=(1, 2))
-    sa_print(5, "filtered_eig rest()+fetch: %.1fs", time.perf_counter() - t0)
+    with TIMERS.phase("setup.filtered_eig.rest"):
+        X, T, G, bad2 = _rest(M, X, torch.as_tensor(a, dtype=M.dtype)
+                              .to(M.device), sigma, degree, rounds)
+        T_host, G_host = _host(T), _host(G)
+        ok &= ~bad2.cpu().numpy() & np.isfinite(T_host).all(axis=(1, 2)) \
+            & np.isfinite(G_host).all(axis=(1, 2))
     # generalized host RR: the Cholesky-QR orthonormalization is
     # approximate, so solve T z = w G z per matrix (scipy, tiny matrices)
     w = np.full((B, m), np.inf)

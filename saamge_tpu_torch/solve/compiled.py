@@ -40,6 +40,7 @@ from saamge_tpu_torch.ops.smoother import inv_taus_f32, smoother_h
 from saamge_tpu_torch.ops.sparse import DIA, ELL, device_matrix, dia_spmv
 from saamge_tpu_torch.ops.stencil import stencil_h
 from saamge_tpu_torch.solve.device_pcg import graphed, pcg
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def _cast_floats(values, dtype) -> tuple:
@@ -131,34 +132,44 @@ def _chol(Ac: sp.spmatrix, dtype) -> torch.Tensor:
     return torch.as_tensor(np.linalg.cholesky(Ac.toarray())).to(dtype)
 
 
+@TIMERS.phase("compile")
 def compile_hierarchy(ml, dtype=torch.float32, prefer_dia: bool = True,
                       use_block_row: bool = True,
                       device="cuda") -> CompiledHierarchy:
     """Convert a host MLData (setup product) into device arrays on
-    ``device`` (the card unless the caller asks for "cpu")."""
+    ``device`` (the card unless the caller asks for "cpu").  The call is
+    the phase ``compile`` of utils/logging.TIMERS, its stages phases
+    inside it: the levels' operators, restrictions and prolongations
+    (``compile.levels``), the host Cholesky factor of the coarsest
+    operator (``compile.coarsest_inverse``) and the module
+    (``compile.module``: the copy to ``device``)."""
     levels = []
-    for i, level in enumerate(ml.levels):
-        tg = level.tg_data
-        A_dev = P_dev = R_dev = None
-        if use_block_row and i > 0:
-            finer = ml.levels[i - 1].tg_data
-            offs = getattr(finer.interp_data, "mis_coarsedofoffsets", None)
-            if offs is not None and offs[-1] == level.A.shape[0]:
-                A_dev = BlockRow.from_csr(level.A, np.asarray(offs, np.int64),
-                                          dtype)
-        if A_dev is None:
-            A_dev = device_matrix(level.A, dtype, prefer_dia)
-        if use_block_row and not tg.smooth_interp:
-            # tentative P/R have dense MIS row blocks too (R row group m =
-            # MIS m's coarse dofs, columns = MIS m's fine dofs)
-            offs = getattr(tg.interp_data, "mis_coarsedofoffsets", None)
-            if offs is not None and offs[-1] == tg.restr.shape[0]:
-                R_dev = BlockRow.from_csr(tg.restr, np.asarray(offs, np.int64),
-                                          dtype)
-                P_dev = TransposedBlockRow(R_dev)
-        levels.append(_level(level.A, tg, dtype, A_dev, P_dev, R_dev))
-    h = CompiledHierarchy(levels, _chol(ml.levels[-1].tg_data.Ac, dtype))
-    return h.to(device)
+    with TIMERS.phase("compile.levels"):
+        for i, level in enumerate(ml.levels):
+            tg = level.tg_data
+            A_dev = P_dev = R_dev = None
+            if use_block_row and i > 0:
+                finer = ml.levels[i - 1].tg_data
+                offs = getattr(finer.interp_data, "mis_coarsedofoffsets",
+                               None)
+                if offs is not None and offs[-1] == level.A.shape[0]:
+                    A_dev = BlockRow.from_csr(
+                        level.A, np.asarray(offs, np.int64), dtype)
+            if A_dev is None:
+                A_dev = device_matrix(level.A, dtype, prefer_dia)
+            if use_block_row and not tg.smooth_interp:
+                # tentative P/R have dense MIS row blocks too (R row group
+                # m = MIS m's coarse dofs, columns = MIS m's fine dofs)
+                offs = getattr(tg.interp_data, "mis_coarsedofoffsets", None)
+                if offs is not None and offs[-1] == tg.restr.shape[0]:
+                    R_dev = BlockRow.from_csr(
+                        tg.restr, np.asarray(offs, np.int64), dtype)
+                    P_dev = TransposedBlockRow(R_dev)
+            levels.append(_level(level.A, tg, dtype, A_dev, P_dev, R_dev))
+    with TIMERS.phase("compile.coarsest_inverse"):
+        chol = _chol(ml.levels[-1].tg_data.Ac, dtype)
+    with TIMERS.phase("compile.module"):
+        return CompiledHierarchy(levels, chol).to(device)
 
 
 def compile_two_level(A: sp.spmatrix, tg, dtype=torch.float32,

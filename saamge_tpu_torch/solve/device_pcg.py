@@ -37,7 +37,20 @@ memory pools (one shared by a runner's two graphs, one for the V-cycle).
 Launch counters: the kernels' wrappers count a launch when they run, so
 an eager solve counts every launch, and a graph solve only those of the
 warm-up and the capture (a replay runs no Python).  A run that counts
-the kernels of a replay reads the profiler's kernel records."""
+the kernels of a replay reads the profiler's kernel records.
+
+Tracing (utils/logging.TIMERS): every solve is the phases
+``pcg.prologue`` (load and prologue launch) and ``pcg.loop`` (whose call
+count is the solves) and adds its iterations to the counter
+``pcg.iterations``; a capture is the phase ``graph.capture`` and adds to
+``graph.captures``; an entry of ``solve_graphs(h)`` thrown away because
+the buffers moved adds to ``graph.remade``.  While ``TIMERS.tracing`` is
+on, each flag wait is a ``pcg.flag_wait`` range and each body launch a
+``pcg.launch`` range, and on the card a pair of CUDA events brackets
+every launch, the prologue's and each body's: the runner keeps the last
+solve's pairs as ``timeline`` (``timeline_ms`` reads them), times on the
+device's own clock that need no profiler.  With tracing off the
+iteration loop is the one above."""
 
 from __future__ import annotations
 
@@ -45,6 +58,8 @@ from contextlib import nullcontext
 from typing import Callable, Optional
 
 import torch
+
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def _warm_up(*fns) -> None:
@@ -80,6 +95,10 @@ class PCGRunner:
         # the flag the host reads: a sharded flag's first shard
         self.flag = getattr(self.go, "lead", self.go)
         self.graphs = None        # (prologue, body) once captured
+        # the last traced solve's (name, start, end) CUDA events, on the
+        # card; drawn from a pool that the next traced solve records again
+        self.timeline = None
+        self._events = []
         if like.device.type == "cuda":
             self.go_host = torch.zeros((), dtype=torch.bool,
                                        pin_memory=True)
@@ -123,12 +142,14 @@ class PCGRunner:
     def _capture(self):
         """Warm up on a side stream, then capture the prologue and the
         body (one memory pool, captured and replayed in that order)."""
-        _warm_up(self.prologue, self.body)
-        pro, body = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        with torch.cuda.graph(pro):
-            self.prologue()
-        with torch.cuda.graph(body, pool=pro.pool()):
-            self.body()
+        with TIMERS.phase("graph.capture"):
+            _warm_up(self.prologue, self.body)
+            pro, body = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            with torch.cuda.graph(pro):
+                self.prologue()
+            with torch.cuda.graph(body, pool=pro.pool()):
+                self.body()
+        TIMERS.count("graph.captures", 2)
         return pro, body
 
     def _going(self) -> bool:
@@ -140,6 +161,46 @@ class PCGRunner:
         self.go_ready.synchronize()
         return bool(self.go_host)
 
+    def _launch(self, name: str, fn: Callable) -> None:
+        """``fn()`` between a pair of the pool's CUDA events, appended to
+        the timeline (tracing on the card)."""
+        k = 2 * len(self.timeline)
+        if len(self._events) < k + 2:
+            self._events += [torch.cuda.Event(enable_timing=True)
+                             for _ in range(2)]
+        start, end = self._events[k:k + 2]
+        start.record()
+        fn()
+        end.record()
+        self.timeline.append((name, start, end))
+
+    def _traced_loop(self, body: Callable, max_iter: int,
+                     on_card: bool) -> int:
+        """The iteration loop with a range around each flag wait and each
+        launch, and the launches timed by events on the card."""
+        it = 0
+        while it < max_iter:
+            with TIMERS.phase("pcg.flag_wait"):
+                go = self._going()
+            if not go:
+                break
+            with TIMERS.phase("pcg.launch"):
+                if on_card:
+                    self._launch("body", body)
+                else:
+                    body()
+            it += 1
+        return it
+
+    def timeline_ms(self) -> list:
+        """The last traced solve's launches as (name, start ms, end ms)
+        from the prologue's start event, on the device's clock; waits for
+        the last event."""
+        a0 = self.timeline[0][1]
+        self.timeline[-1][2].synchronize()
+        return [(name, a0.elapsed_time(a), a0.elapsed_time(z))
+                for name, a, z in self.timeline]
+
     def solve(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
               rel_tol: float = 1e-6, abs_tol: float = 0.0,
               max_iter: int = 200, graph: bool = True):
@@ -147,19 +208,31 @@ class PCGRunner:
         copies, so the next solve leaves them as they are."""
         on_card = self.b.device.type == "cuda"
         with torch.cuda.device(self.b.device) if on_card else nullcontext():
-            self._load(b, x0, rel_tol, abs_tol)
             if graph and on_card:
                 if self.graphs is None:
-                    self.graphs = self._capture()
+                    # the warm-up runs on the loaded state
                     self._load(b, x0, rel_tol, abs_tol)
+                    self.graphs = self._capture()
                 prologue, body = (g.replay for g in self.graphs)
             else:
                 prologue, body = self.prologue, self.body
-            prologue()
-            it = 0
-            while it < max_iter and self._going():
-                body()
-                it += 1
+            tracing = TIMERS.tracing
+            with TIMERS.phase("pcg.prologue"):
+                self._load(b, x0, rel_tol, abs_tol)
+                if tracing and on_card:
+                    self.timeline = []
+                    self._launch("prologue", prologue)
+                else:
+                    prologue()
+            with TIMERS.phase("pcg.loop"):
+                if tracing:
+                    it = self._traced_loop(body, max_iter, on_card)
+                else:
+                    it = 0
+                    while it < max_iter and self._going():
+                        body()
+                        it += 1
+            TIMERS.count("pcg.iterations", it)
             return self.x.clone(), it, self.nom.clone()
 
 
@@ -177,10 +250,12 @@ class GraphedApply:
         with torch.cuda.device(self.x.device):
             self.x.copy_(x)
             if self.graph is None:
-                _warm_up(lambda: self.fn(self.x))
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    self.y = self.fn(self.x)
+                with TIMERS.phase("graph.capture"):
+                    _warm_up(lambda: self.fn(self.x))
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        self.y = self.fn(self.x)
+                TIMERS.count("graph.captures")
                 self.graph = graph
             self.graph.replay()
             return self.y.clone()
@@ -201,6 +276,8 @@ class SolveGraphs:
         where = tuple((t.device, t.data_ptr()) for t in h.buffers())
         hit = self.items.get(key)
         if hit is None or hit[0] != where:
+            if hit is not None:
+                TIMERS.count("graph.remade")
             self.items.pop(key, None)
             hit = (where, make())
             self.items[key] = hit

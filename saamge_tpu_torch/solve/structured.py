@@ -619,6 +619,7 @@ class StructuredHierarchy(torch.nn.Module):
         return A0s.unpad(xh)
 
 
+@TIMERS.phase("compile")
 def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
                        smoother_dtype=torch.bfloat16,
                        rp_dtype=torch.bfloat16,
@@ -669,7 +670,17 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
     contraction kernels (ops/contract.py) instead of the window kernels;
     the JAX configuration pairs it with f32 tent blocks
     (``rp_dtype=torch.float32``).  The hierarchy is built on ``device``
-    (the card unless the caller asks for "cpu")."""
+    (the card unless the caller asks for "cpu").
+
+    The call is the phase ``compile`` of utils/logging.TIMERS, its stages
+    phases inside it: the fine level (``compile.fine``: the PCG operator
+    and the smoother twin, DIA or matrix-free, and the tent blocks Rst),
+    the mid level (``compile.mid``: the brick blocks, their packings and
+    tiles, or the dense mid), the coarsest restriction
+    (``compile.coarse``: the superbrick tent blocks Rst1 or the dense
+    R1), the coarsest inverse (``compile.coarsest_inverse``, on the
+    Cholesky route only) and the module (``compile.module``: its index
+    tables and the copy to ``device``)."""
     device = card_or_cpu(device)
     if len(ml.levels) not in (1, 2):
         raise ValueError("the structured path takes a 2- or 3-level setup "
@@ -684,32 +695,35 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
     pd0 = tg0.poly_data
     if pd0.roots2 is not None and len(pd0.roots2):
         raise ValueError("only single-chain root families are ported")
-    if mfree is None:
-        A0 = DIA.from_csr(lv0.A, torch.float32, max_diags=64)
-        A0s = DIA(A0.vals.to(smoother_dtype), A0.offsets, A0.n)
-    else:
-        em0, c_elem, ess_dofs = mfree
-        A0s = MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
-                                 smoother_dtype, A_csr=lv0.A)
-        A0 = (MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
-                                 torch.float32) if hbm_frugal
-              else DIA.from_csr(lv0.A, torch.float32, max_diags=64))
-    Rst_bm, cd_brick, slot, bs = build_structured_interp(
-        lv0.rels, tg0.tent_interp, tg0.interp_data.mis_numcoarsedof, geo)
-    NB = geo.num_bricks
-    flat_id = slot * NB + cd_brick
-
     t = torch.as_tensor
-    fine = dict(
-        A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
-        taus0=inv_taus_f32(pd0.roots),
-        Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0))).to(rp_dtype),
-        flat_id=t(flat_id), geo=geo, contract=use_pallas_contract)
+    with TIMERS.phase("compile.fine"):
+        if mfree is None:
+            A0 = DIA.from_csr(lv0.A, torch.float32, max_diags=64)
+            A0s = DIA(A0.vals.to(smoother_dtype), A0.offsets, A0.n)
+        else:
+            em0, c_elem, ess_dofs = mfree
+            A0s = MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
+                                     smoother_dtype, A_csr=lv0.A)
+            A0 = (MatrixFreeQ1.build(c_elem, ess_dofs, em0, geo.nodes,
+                                     torch.float32) if hbm_frugal
+                  else DIA.from_csr(lv0.A, torch.float32, max_diags=64))
+        Rst_bm, cd_brick, slot, bs = build_structured_interp(
+            lv0.rels, tg0.tent_interp, tg0.interp_data.mis_numcoarsedof,
+            geo)
+        NB = geo.num_bricks
+        flat_id = slot * NB + cd_brick
+        fine = dict(
+            A0=A0, A0s=A0s, dinv0=t(np.asarray(pd0.dinv, np.float64)),
+            taus0=inv_taus_f32(pd0.roots),
+            Rst=t(np.ascontiguousarray(Rst_bm.transpose(1, 2, 0)))
+            .to(rp_dtype),
+            flat_id=t(flat_id), geo=geo, contract=use_pallas_contract)
     Ac1 = tg0.Ac.tocsr()
     if len(ml.levels) == 1:
         Ainv = _device_spd_inverse(np.asarray(Ac1.todense(), np.float64),
                                    device)
-        return StructuredHierarchy(Ainv=Ainv, **fine).to(device)
+        with TIMERS.phase("compile.module"):
+            return StructuredHierarchy(Ainv=Ainv, **fine).to(device)
 
     tg1 = ml.levels[1].tg_data
     dinv1 = np.asarray(tg1.poly_data.dinv, np.float64)
@@ -719,22 +733,25 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
         package's arrays are."""
         return t(np.asarray(M, np.float64)).to(torch.float32).to(dtype)
 
-    if mid_format == "dense":
-        mid = {"A1_dense": dense(Ac1.todense(), mid_dtype),
-               "R1": dense(tg1.restr.todense(), rp_dtype)}
-    else:
-        blocks, doffs, rects = brick_block_from_csr(Ac1, cd_brick, slot, bs,
-                                                    geo.bricks)
-        dinv1p = np.zeros(NB * bs)
-        dinv1p[flat_id] = dinv1
-        dinv1 = dinv1p
-        if hbm_frugal:
-            mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
+    with TIMERS.phase("compile.mid"):
+        if mid_format == "dense":
+            mid = {"A1_dense": dense(Ac1.todense(), mid_dtype)}
         else:
-            mid = mid_buffers(dense(blocks, mid_dtype), rects, geo.bricks,
-                              device, resident=mid_resident)
-        mid.update(doffs=doffs, rects=rects)
-        if super_bricks is not None:
+            blocks, doffs, rects = brick_block_from_csr(Ac1, cd_brick, slot,
+                                                        bs, geo.bricks)
+            dinv1p = np.zeros(NB * bs)
+            dinv1p[flat_id] = dinv1
+            dinv1 = dinv1p
+            if hbm_frugal:
+                mid = {"A1_packed": pack_blocks(blocks, rects, mid_dtype)}
+            else:
+                mid = mid_buffers(dense(blocks, mid_dtype), rects,
+                                  geo.bricks, device, resident=mid_resident)
+            mid.update(doffs=doffs, rects=rects)
+    with TIMERS.phase("compile.coarse"):
+        if mid_format == "dense":
+            mid["R1"] = dense(tg1.restr.todense(), rp_dtype)
+        elif super_bricks is not None:
             if tg1.smooth_interp:
                 raise ValueError("the superbrick coarsest restriction needs "
                                  "the tentative P1")
@@ -751,10 +768,11 @@ def compile_structured(ml, geo: BrickGeometry, super_bricks=None,
             mid["R1"] = dense(R1, rp_dtype)
     Ainv = _device_spd_inverse(np.asarray(tg1.Ac.todense(), np.float64),
                                device)
-    h = StructuredHierarchy(
-        dinv1=t(dinv1), taus1=inv_taus_f32(tg1.poly_data.roots),
-        Ainv=Ainv.to(ainv_dtype), **fine, **mid)
-    return h.to(device)
+    with TIMERS.phase("compile.module"):
+        h = StructuredHierarchy(
+            dinv1=t(dinv1), taus1=inv_taus_f32(tg1.poly_data.roots),
+            Ainv=Ainv.to(ainv_dtype), **fine, **mid)
+        return h.to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Leveled logging + phase timers.
+"""Leveled logging + phase timers and counters.
 
 Replaces the reference's SA_PRINTF/SA_RPRINTF macro family (common.hpp:365-455)
 and StopWatch phase instrumentation (mltest.cpp:624-625, tg.cpp:436-460).
@@ -41,38 +41,68 @@ def sa_assert(level: int, cond, msg: str = "", *args) -> None:
 
 
 class PhaseTimers:
-    """Accumulating named wall-clock timers (SA_*TIMER analog)."""
+    """Accumulating named wall-clock timers (SA_*TIMER analog) and
+    counters: the port's one tracing system.
+
+    ``tracing`` (off by default) makes each phase also a
+    ``torch.profiler.record_function`` range of its name, so that a
+    profiler trace holds the program's phases on the clock of its device
+    records; with it off a phase opens no range and imports nothing.
+    Code that does more while tracing (solve/device_pcg.py: a range per
+    flag wait and launch, CUDA events around each graph replay) reads
+    the flag itself."""
 
     def __init__(self) -> None:
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        # named event counts, apart from the phases' call counts
+        self.counters: Dict[str, int] = {}
         # active phase stack (innermost last) — read by observability
         # probes (e.g. run_scale_setup's RSS sampler) to attribute
         # resource peaks to a phase
         self.stack: list = []
+        self.tracing = False
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        rng = None
+        if self.tracing:
+            from torch.profiler import record_function
+            rng = record_function(name)
+            rng.__enter__()
         t0 = time.perf_counter()
         self.stack.append(name)
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             if self.stack and self.stack[-1] == name:
                 self.stack.pop()
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
             sa_print(4, "TIMING: %s %f seconds.", name, dt)
 
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
     def total(self, name: str) -> float:
         return self.totals.get(name, 0.0)
+
+    def reset(self) -> None:
+        """Clear the totals, the call counts and the counters."""
+        self.totals.clear()
+        self.counts.clear()
+        self.counters.clear()
 
     def report(self) -> str:
         lines = ["TIMING report:"]
         for name in sorted(self.totals):
             lines.append("  %-40s %10.4f s  (%d calls)"
                          % (name, self.totals[name], self.counts[name]))
+        for name in sorted(self.counters):
+            lines.append("  %-40s %10d" % (name, self.counters[name]))
         return "\n".join(lines)
 
 

@@ -166,6 +166,26 @@ def test_bucket_device_solve_matches_host(case, dt, routed):
     assert max(c.shape[1] for c in out[0]) > 1
 
 
+@pytest.mark.parametrize("case,dt", [("gap", "f64"), ("ae", "f32")])
+def test_bucket_routes_counted_by_timers(case, dt):
+    """The per-bucket device solve adds each route's count to the
+    counter ``setup.eig_route.<route>`` of utils/logging.TIMERS, exactly
+    as to the ``routes`` dict (the ``ae`` bucket re-solves all 8 on the
+    host); no other route counter moves."""
+    from saamge_tpu_torch.utils.logging import TIMERS
+    mats, theta = (_gap_mats(), 2e-4) if case == "gap" \
+        else (_ae_mats(), 0.03)
+    key = "setup.eig_route."
+    before = {k: v for k, v in TIMERS.counters.items() if k.startswith(key)}
+    routes = {}
+    P_be.bucket_spectral_cut(mats, 512, theta, dtype=DTYPES[dt][0],
+                             device="cpu", chunk=2, routes=routes)
+    grown = {k[len(key):]: v - before.get(k, 0)
+             for k, v in TIMERS.counters.items() if k.startswith(key)}
+    assert {k: v for k, v in grown.items() if v or k in routes} == routes
+    assert routes.get("host_resolve", 0) == (8 if case == "ae" else 0)
+
+
 def test_batched_cut_routes(monkeypatch):
     """The JAX routing: sparse AEs and AEs above device_max_n go to the
     host, and so does a bucket with len * nmax^3 < 2e10 (18 AEs of the
