@@ -96,9 +96,16 @@ Phases (one line each; any failure raises and exits non-zero):
                  card, its split and routes as in phase 3; other coarse
                  dims than [16652, 367] raise with the per-AE difference
                  from the host setup), compile_hierarchy, the fused
-                 smoother kernel,
-                 then the slice; its PCG launches the smoother and the
-                 stencil and no structured-only kernel
+                 smoother kernel, the block-row kernel in each product of
+                 the V-cycle (R0, the level-1 root and residual, R1, P1,
+                 P0; bit for bit equal to blockrow_plain and to its own
+                 repeat, beside the CSR product of the same matrix),
+                 then the slice; its PCG launches the smoother, the
+                 stencil and the block-row kernel in its four modes and
+                 no structured-only kernel, and its V-cycles take no
+                 plain block-row route (counters ``blockrow.kernel`` /
+                 ``blockrow.plain``); the kernels of one body replay of
+                 the PCG graph, counted from profiler records
   8. twolevel -- the flagship setup's level 0 alone (a two-level
                  hierarchy: its coarsest level is the flagship's mid
                  level, 18,917 dofs at n=96), compiled on the card in
@@ -430,7 +437,11 @@ def ragged_checks(dev, torch, np, k):
     grids of one to three tiles a plane in every mode and must equal the
     one-thread-a-node reference bit for bit; its chain (1 and 10 roots,
     with and without the residual) must equal the kernel's own single
-    passes, one a level, bit for bit."""
+    passes, one a level, bit for bit.  The block-row kernel runs every
+    mode its operator allows (``blockrow_ragged_cases``: groups of one
+    row, groups wider than 512 columns and of more than 8 rows, one group
+    alone; overlapping and disjoint column sets) and must equal
+    blockrow_plain bit for bit."""
     rng = np.random.default_rng(11)
     bs = 13
     doffs = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -603,6 +614,22 @@ def ragged_checks(dev, torch, np, k):
                                   lambda a=a: k["mfree_chain"](*a),
                                   lambda a=a: k["mfree_chain_plain"](*a),
                                   (passes, "the single passes, one a level")))
+    for name, sizes, m, disjoint in blockrow_ragged_cases(rng):
+        M = ragged_blockrow(k["BlockRow"], sizes, m, disjoint, rng, np,
+                            torch).to(dev)
+        n = M.shape[0]
+        modes = ["spmv"] + ["transpose"] * disjoint \
+            + ["residual", "root"] * (n == m)
+        for mode in modes:
+            x = vec(n if mode == "transpose" else m)
+            kw = {"mode": mode, "b": vec(n), "tau": 1.37,
+                  "dinv": torch.as_tensor(rng.uniform(0.5, 1.0, n),
+                                          dtype=torch.float32).to(dev)}
+            plain = (lambda M=M, x=x, kw=kw:
+                     k["blockrow_plain"](M, x, **kw))
+            cases.append((f"blockrow {name} {mode}",
+                          lambda M=M, x=x, kw=kw: k["blockrow"](M, x, **kw),
+                          plain, (plain, "blockrow_plain")))
     worst = 0.0
     for what, kern, plain, same in cases:
         got = kern()
@@ -629,7 +656,136 @@ def ragged_checks(dev, torch, np, k):
         contract_P_ranges_bit_equal_full_ranges=True,
         contract_raise_without_tables=True,
         mfree_bit_equal_point_reference=True,
-        mfree_chain_bit_equal_single_passes=True)
+        mfree_chain_bit_equal_single_passes=True,
+        blockrow_bit_equal_plain=True)
+
+
+def blockrow_ragged_cases(rng):
+    """(name, [(rows, columns)] of the groups, columns m, disjoint column
+    sets) of the block-row ragged cases."""
+    return (("rows1", [(1, int(c)) for c in rng.integers(1, 41, 300)],
+             300, False),
+            ("rows1_disjoint", [(1, int(c)) for c in rng.integers(1, 9, 300)],
+             1400, True),
+            ("wide", [(11, 700), (3, 520), (2, 9), (1, 1)], 1300, True),
+            ("wide_square", [(4, 600)] + [(1, 7)] * 596, 600, False),
+            ("one_group", [(5, 5)], 5, True))
+
+
+def ragged_blockrow(BlockRow, sizes, m, disjoint, rng, np, torch):
+    """An f32 BlockRow of random row groups of the given (rows, columns)
+    over m columns, each group's column set drawn at random (disjoint
+    ones from one permutation)."""
+    import scipy.sparse as sp
+    perm, at = rng.permutation(m), 0
+    rows, cols, offs = [], [], [0]
+    for nr, nc in sizes:
+        cs = perm[at:at + nc] if disjoint else rng.choice(m, nc,
+                                                          replace=False)
+        at += nc
+        rows.append(np.repeat(np.arange(offs[-1], offs[-1] + nr), nc))
+        cols.append(np.tile(cs, nr))
+        offs.append(offs[-1] + nr)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    A = sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                      shape=(offs[-1], m)).tocsr()
+    return BlockRow.from_csr(A, np.asarray(offs), torch.float32)
+
+
+def blockrow_coo(M, np):
+    """(rows, columns, values) of a BlockRow's packing, on the host."""
+    d = M.packed_desc.cpu().numpy().astype(np.int64)
+    row0, nr, nc, voff, coff = d.T
+    length = nr * nc
+    g = np.repeat(np.arange(len(d)), length)
+    r, c = np.divmod(np.arange(length.sum()) - voff[g], nc[g])
+    return (row0[g] + r, M.packed_cols.cpu().numpy()[coff[g] + c],
+            M.packed_vals.cpu().numpy())
+
+
+# the block-row products of one general V-cycle: (record, level, operator,
+# mode); P is the transpose of R
+BLOCKROW_PRODUCTS = (("blockrow_R0", 0, "R", "spmv"),
+                     ("blockrow_A1_root", 1, "A", "root"),
+                     ("blockrow_A1_residual", 1, "A", "residual"),
+                     ("blockrow_R1", 1, "R", "spmv"),
+                     ("blockrow_P1", 1, "R", "transpose"),
+                     ("blockrow_P0", 0, "R", "transpose"))
+
+
+def blockrow_kernels(h, kern, torch, np, device_profile, vec):
+    """The block-row kernel in each product of the general V-cycle, at
+    the hierarchy's shapes, against blockrow_plain (bit for bit, and its
+    repeat) and beside the CSR product of the same matrix (spmv and
+    transpose).  The bound counts the packing (values, columns,
+    descriptors; the uncovered columns for the transpose), the distinct
+    x entries the product reads, b / dinv / x where the mode reads them,
+    and the output."""
+    dev = next(h.buffers()).device
+    cases, pairs = [], []
+    for name, level, which, mode in BLOCKROW_PRODUCTS:
+        lv = h.levels[level]
+        M = lv.A if which == "A" else lv.R
+        n, m = M.shape
+        nin, nout = (n, m) if mode == "transpose" else (m, n)
+        x = vec(nin)
+        kw = {"mode": mode, "b": vec(nout), "dinv": lv.dinv,
+              "tau": lv.roots[0]}
+        run = (lambda M=M, x=x, kw=kw: kern["blockrow"](M, x, **kw))
+        ref = (lambda M=M, x=x, kw=kw: kern["blockrow_plain"](M, x, **kw))
+        rows, cols, vals = blockrow_coo(M, np)
+        if mode == "transpose":
+            rows, cols = cols, rows
+        library = None
+        if mode in ("spmv", "transpose"):
+            csr = sparse_csr(torch.as_tensor(rows).to(dev),
+                             torch.as_tensor(cols).to(dev),
+                             torch.as_tensor(vals).to(dev), (nout, nin),
+                             torch)
+            library = (lambda csr=csr, x=x: csr @ x[:, None])
+        reads = {"spmv": len(np.unique(cols)), "transpose": n,
+                 "residual": len(np.unique(cols)) + n, "root": m + 2 * n}
+        mat = nbytes(M.packed_vals, M.packed_cols, M.packed_desc) + (
+            nbytes(M.uncovered_cols) if mode == "transpose" else 0)
+        ops = 2 * len(vals) + {"residual": n, "root": 4 * n}.get(mode, 0)
+        cases.append((name, 1e-6, "blockrow.cu",
+                      "blockrow.py (XLA einsum / take; no Pallas)", run, ref,
+                      (mat + 4 * (reads[mode] + nout), ops), library))
+        pairs += [(name, run, ref), (f"{name} repeat", run, run)]
+    records = run_kernels(cases, torch, device_profile)
+    for rec, (_, level, which, mode) in zip(records, BLOCKROW_PRODUCTS):
+        rec.update(wrapper="blockrow", mode=mode,
+                   case=f"level {level} {which}, {mode}, general n=64")
+    bit_checks("blockrow", pairs, torch)
+    return records
+
+
+def replay_kernels(graph, torch, replays=5, lead=1000):
+    """Device records of each of ``replays`` replays of ``graph`` in one
+    profiler window, grouped by the correlation id of the graph launch
+    (the window opens with ``lead`` small kernels that no count reads)."""
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device=torch.cuda.current_device())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    launches = {ev.correlation_id() for ev in events
+                if ev.device_type() != cuda
+                and ev.name().startswith(("cudaGraphLaunch",
+                                          "cuGraphLaunch"))}
+    counts = {}
+    for ev in events:
+        if ev.device_type() == cuda and ev.correlation_id() in launches:
+            counts[ev.correlation_id()] = counts.get(ev.correlation_id(),
+                                                     0) + 1
+    return [counts[c] for c in sorted(counts)]
 
 
 # the device kernel of each wrapper, as the profiler names it (the general
@@ -640,7 +796,8 @@ KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
              "mfree": "mfree_pass_kernel",
              "mfree_chain": "mfree_chain_kernel", "midmv": "midmv_kernel",
              "contract_R": "contract_R_kernel",
-             "contract_P": "contract_P_kernel"}
+             "contract_P": "contract_P_kernel",
+             "blockrow": "blockrow_kernel"}
 
 
 def kernel_records(solve, torch, device_profile, windows=3, lead=1000):
@@ -1796,6 +1953,9 @@ def main() -> int:
                                   pcg_solve, struct_pcg_solve,
                                   struct_vcycle_apply, vcycle_apply)
     from saamge_tpu_torch.ops import _build
+    from saamge_tpu_torch.ops.blockrow import (MODES as BLOCKROW_MODES,
+                                               BlockRow, blockrow,
+                                               blockrow_plain)
     from saamge_tpu_torch.ops.contract import (contract_P, contract_P_plain,
                                                contract_R, contract_R_plain,
                                                contract_R_plan,
@@ -1818,17 +1978,19 @@ def main() -> int:
     from saamge_tpu_torch.ops.window import (box_index, slot_ranges,
                                              window_P, window_P_plain,
                                              window_R, window_R_plain)
+    from saamge_tpu_torch.solve.device_pcg import solve_graphs
     from saamge_tpu_torch.utils.logging import TIMERS
     wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
                 "window_R": window_R, "window_P": window_P,
                 "mid_chain": mid_chain, "mfree": mfree_h,
                 "mfree_chain": mfree_chain, "midmv": midmv,
                 "smoother": smoother_h, "contract_R": contract_R,
-                "contract_P": contract_P}
+                "contract_P": contract_P, "blockrow": blockrow}
     structured_only = ("wavefront", "window_R", "window_P", "mid_chain",
                        "mfree", "mfree_chain", "midmv", "contract_R",
                        "contract_P")
     kern = dict(wrappers, midmv_plain=midmv_plain,
+                blockrow_plain=blockrow_plain, BlockRow=BlockRow,
                 contract_R_plain=contract_R_plain,
                 contract_P_plain=contract_P_plain, slot_lists=slot_lists,
                 window_R_plain=window_R_plain,
@@ -1873,7 +2035,8 @@ def main() -> int:
               ("mfree.cu", "mfree_pass_kernel"),
               ("mfree.cu", "mfree_chain_kernel"),
               ("contract.cu", "contract_R_kernel"),
-              ("contract.cu", "contract_P_kernel"))}
+              ("contract.cu", "contract_P_kernel"),
+              ("blockrow.cu", "blockrow_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
     if args.cards > 1:
@@ -2306,12 +2469,41 @@ def main() -> int:
         ], torch, device_profile)
         records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
         del gx, gb, G0, lv0
+        records += blockrow_kernels(g, kern, torch, np, device_profile, vec)
         if full:
             gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers,
                             torch, np, vcycle_apply, g_pcg,
                             device_profile, exact=False)
-            check_launches("general", gen["launches"], ("smoother", "stencil"),
+            check_launches("general", gen["launches"],
+                           ("smoother", "stencil", "blockrow"),
                            structured_only)
+            check_launches("general blockrow", gen["modes"]["blockrow"],
+                           tuple(BLOCKROW_MODES), ())
+            # every block-row product of the card's V-cycles is one launch
+            # of the kernel: no plain route (CPU or bucket products)
+            bd = torch.as_tensor(b_gen, dtype=torch.float32, device=dev)
+            before = dict(TIMERS.counters)
+            _, it_e, _ = g_pcg(g, bd, 1e-6, graph=False)
+            routes = {k: TIMERS.counters.get(k, 0) - before.get(k, 0)
+                      for k in ("blockrow.kernel", "blockrow.plain")}
+            # a block-row level's roots and residual; R and P = R^T
+            per_cycle = sum(
+                (2 * len(lv.roots) + 1) * isinstance(lv.A, BlockRow)
+                + 2 * isinstance(lv.R, BlockRow) for lv in g.levels)
+            log("general", blockrow_routes=routes, pcg_iters=it_e,
+                blockrow_products_per_vcycle=per_cycle)
+            if routes["blockrow.plain"] or routes["blockrow.kernel"] != \
+                    per_cycle * (it_e + 1):
+                raise RuntimeError(f"general block-row routes {routes}, "
+                                   f"{per_cycle} products a V-cycle, "
+                                   f"{it_e} iterations")
+            # the kernels of one body replay of the PCG graph (813 before
+            # the block-row kernel)
+            runner = solve_graphs(g).items[
+                ("pcg", torch.float32, bd.device, False)][1]
+            body = replay_kernels(runner.graphs[1], torch)
+            log("general", body_replay_kernels=body)
+            gen["body_replay_kernels"] = body
             it6, it8 = gen["it"]
             if args.general_n == 64 and (it6 > GENERAL_PCG_MAX[1e-6]
                                          or it8 > GENERAL_PCG_MAX[1e-8]):
@@ -2433,6 +2625,7 @@ def main() -> int:
                "midmv": "capacity",
                "contract_R": "contract", "contract_P": "contract",
                "smoother": "general", "stencil_slab": "sharded",
+               **dict.fromkeys((p[0] for p in BLOCKROW_PRODUCTS), "general"),
                "window_R_slab": "sharded", "window_P_slab": "sharded"}
     return finish(records, {rec["name"]: results.get(
         path_of.get(rec["name"], "flagship")) for rec in records}, smi,

@@ -16,9 +16,12 @@ Smoothing.  Every f32 DIA level without a second root chain smooths
 through the fused smoother kernel (ops/smoother.py): all roots in one
 launch, the pre-smoothing launch emitting the residual too.  This
 replaces both JAX branches, the VMEM-resident fused smoother
-(``fits_vmem``) and the blocked stencil passes above that budget.  The
-other levels (f64, not DIA, or the invx family's two chains) run the
-plain torch chain, as JAX runs an XLA scan there.  The f32 products of
+(``fits_vmem``) and the blocked stencil passes above that budget.  On a
+block-row level each root and the residual are one pass of the
+block-row kernel (ops/blockrow.py: f32 on the card), as are the
+block-row R and P products.  The other levels (f64 DIA, banded, ELL, or
+the invx family's two chains) run the plain torch chain, as JAX runs an
+XLA scan there.  The f32 products of
 a DIA operator (the residual of a W-cycle's later visits, the PCG
 operator) are the stencil kernel (ops/stencil.py); an f64 DIA product
 is plain torch, as XLA's is in JAX.
@@ -35,7 +38,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from saamge_tpu_torch.ops.blockrow import BlockRow, TransposedBlockRow
+from saamge_tpu_torch.ops.blockrow import (BlockRow, TransposedBlockRow,
+                                           blockrow)
 from saamge_tpu_torch.ops.smoother import inv_taus_f32, smoother_h
 from saamge_tpu_torch.ops.sparse import DIA, ELL, device_matrix, dia_spmv
 from saamge_tpu_torch.ops.stencil import stencil_h
@@ -97,6 +101,21 @@ class CompiledLevel(torch.nn.Module):
         if A.vals.dtype == torch.float32 and x.dtype == torch.float32:
             return A.unpad(stencil_h("spmv", A, A.pad(x)))
         return dia_spmv(A, x)
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """b - A x: one pass of the block-row kernel (ops/blockrow.py)
+        on a block-row operator, else b minus ``matvec``."""
+        if isinstance(self.A_mod, BlockRow):
+            return blockrow(self.A_mod, x, "residual", b)
+        return b - self.matvec(x)
+
+    def root(self, x: torch.Tensor, b: torch.Tensor,
+             tau: float) -> torch.Tensor:
+        """One smoother root x + (dinv (b - A x)) / tau: one pass of the
+        block-row kernel on a block-row operator, else the plain chain."""
+        if isinstance(self.A_mod, BlockRow):
+            return blockrow(self.A_mod, x, "root", b, self.dinv, tau)
+        return x + (self.dinv * (b - self.matvec(x))) / tau
 
 
 class CompiledHierarchy(torch.nn.Module):
@@ -194,16 +213,18 @@ def smooth(lv: CompiledLevel, b: torch.Tensor,
         return A.unpad(smoother_h(A, lv.inv_taus, A.pad(b), lv.dinvh,
                                   A.pad(x)))
 
+    if not lv.roots2:
+        for tau in lv.roots:
+            x = lv.root(x, b, tau)
+        return x
+
     def chain(x, roots):
         for tau in roots:
             x = x + (lv.dinv * (b - lv.matvec(x))) / tau
         return x
 
-    x1 = chain(x, lv.roots)
-    if lv.roots2:
-        w = lv.weightfirst
-        return w * x1 + (1.0 - w) * chain(x, lv.roots2)
-    return x1
+    w = lv.weightfirst
+    return w * chain(x, lv.roots) + (1.0 - w) * chain(x, lv.roots2)
 
 
 def coarse_solve(h: CompiledHierarchy, b: torch.Tensor) -> torch.Tensor:
@@ -239,7 +260,7 @@ def vcycle(h: CompiledHierarchy, b: torch.Tensor, x: torch.Tensor,
 
     x = smooth(lv, b, x)
     for _ in range(mu):
-        xc = coarse_correct(lv.R.matvec(b - lv.matvec(x)))
+        xc = coarse_correct(lv.R.matvec(lv.residual(x, b)))
         x = x + lv.P.matvec(xc)
     return smooth(lv, b, x)
 

@@ -38,14 +38,19 @@ def _scattered():
             + sp.identity(300)).tocsr()
 
 
-def _block_matrix():
+def _block_matrix(disjoint=False):
+    """Row groups with random column sets; ``disjoint``: the sets are
+    disjoint, as a tentative restriction's are (some columns in none)."""
     rng = np.random.default_rng(0)
     n = 90
     offsets = np.array([0, 5, 5, 17, 30, 58, 90])
+    perm = np.random.default_rng(1).permutation(n)
     rows, cols, vals = [], [], []
     for g in range(len(offsets) - 1):
         r0, r1 = offsets[g], offsets[g + 1]
         colset = rng.choice(n, size=rng.integers(3, 25), replace=False)
+        if disjoint:
+            colset = perm[14 * g:14 * g + min(len(colset), 14)]
         for r in range(r0, r1):
             for c in colset:
                 rows.append(r)
@@ -154,6 +159,17 @@ def test_blockrow_matches_jax():
     got = B.matvec(torch.as_tensor(x)).numpy()
     _close(got, J.matvec(jnp.asarray(x)))
     _close(got, A @ x)
+    # the bucket product sums overlapping column sets, as JAX's does; the
+    # transpose writes each column from one group: overlapping column
+    # sets are refused, disjoint ones (a tentative restriction's) taken
+    got = B.bucket_rmatvec(torch.as_tensor(y)).numpy()
+    _close(got, JB.TransposedBlockRow(J).matvec(jnp.asarray(y)))
+    _close(got, A.T @ y)
+    with pytest.raises(ValueError, match="overlap"):
+        TransposedBlockRow(B)
+    A, offsets = _block_matrix(disjoint=True)
+    B = BlockRow.from_csr(A, offsets, F64)
+    J = JB.DeviceBlockRow.from_csr(A, offsets, dtype=jnp.float64)
     got = TransposedBlockRow(B).matvec(torch.as_tensor(y)).numpy()
     _close(got, JB.TransposedBlockRow(J).matvec(jnp.asarray(y)))
     _close(got, A.T @ y)

@@ -14,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from saamge_tpu_torch import (compile_hierarchy, compile_structured,
                               flagship_problem, general_problem, pcg_solve,
-                              struct_pcg_solve)
+                              struct_pcg_solve, vcycle_apply)
 from saamge_tpu_torch.solve.device_pcg import solve_graphs
 from saamge_tpu_torch.utils.logging import TIMERS, PhaseTimers
 
@@ -106,12 +106,21 @@ def test_compile_stages_are_phases(path, structured, general):
 def test_eager_solve_counts(path, structured, general):
     """One solve is one call of the phase ``pcg.loop`` and adds exactly
     its returned iterations to ``pcg.iterations``; an eager solve
-    captures nothing."""
+    captures nothing.  On the general path it also counts its V-cycles'
+    block-row products (``blockrow.plain`` on the CPU): the prologue's
+    V-cycle and one an iteration, each as many as one V-cycle alone."""
     h, b, _, solve = _path(path, structured, general)
+    before = dict(TIMERS.counters)
+    if path == "general":
+        vcycle_apply(h, b)
+    per_cycle = _grown(TIMERS.counters, before).get("blockrow.plain", 0)
     before, calls = dict(TIMERS.counters), dict(TIMERS.counts)
     _, it, _ = solve(h, b, rel_tol=1e-8)
     assert it > 0
-    assert _grown(TIMERS.counters, before) == {"pcg.iterations": it}
+    grown = _grown(TIMERS.counters, before)
+    assert grown.pop("blockrow.plain", 0) == per_cycle * (it + 1)
+    assert per_cycle > 0 if path == "general" else per_cycle == 0
+    assert grown == {"pcg.iterations": it}
     assert _grown(TIMERS.counts, calls) == {"pcg.prologue": 1,
                                             "pcg.loop": 1}
 
