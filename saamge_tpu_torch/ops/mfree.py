@@ -34,7 +34,10 @@ loop).  The kernel's block owns a tile of the flat (y, z) plane index
 and marches along x over a chunk of planes (``mfree_plan``).  Arithmetic
 is f32; bf16 c and m are widened on load.  ``mfree_point_h`` launches
 the first design (one thread a node), the reference the card's check
-holds the tiled pass to, bit for bit."""
+holds the tiled pass to, bit for bit.  The counters ``mfree.kernel`` (a
+launch of csrc/mfree.cu: pass, chain or the one-thread-a-node reference)
+and ``mfree.plain`` (a call on the plain route) of utils/logging.TIMERS
+count each call."""
 
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import torch
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.stencil import MODES
+from saamge_tpu_torch.utils.logging import TIMERS
 
 # MFEM hex corner ordering (fem/mesh.py hex_mesh): bottom face CCW, then
 # the top face; the same bit rule is written out in csrc/mfree.cu.
@@ -249,6 +253,7 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
     on haloed vectors; the output's halo is zero."""
     vecs = _mode_vecs(mode, xh, bh, dinvh)
     if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        TIMERS.count("mfree.plain")
         return mfree_plain_h(mode, op, xh, bh, dinvh, inv_tau)
     _check_op(op, vecs)
     lib = _build.load()
@@ -264,6 +269,7 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
             vecs["dinv"].data_ptr() if "dinv" in vecs else None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree")
+    TIMERS.count("mfree.kernel")
     mfree_h.launches += 1
     mfree_h.mode_launches[mode] += 1
     return y
@@ -281,6 +287,7 @@ def mfree_point_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
     version."""
     vecs = _mode_vecs(mode, xh, bh, dinvh)
     if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        TIMERS.count("mfree.plain")
         return mfree_plain_h(mode, op, xh, bh, dinvh, inv_tau)
     _check_op(op, vecs)
     lib = _build.load()
@@ -295,6 +302,7 @@ def mfree_point_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
             vecs["dinv"].data_ptr() if "dinv" in vecs else None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree_point")
+    TIMERS.count("mfree.kernel")
     mfree_point_h.launches += 1
     return y
 
@@ -323,6 +331,7 @@ def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
                          f"1..{_build.MAX_ROOTS}")
     vecs = {"x": xh, "b": bh, "dinv": dinvh}
     if not is_cuda(op.c_h, op.m_h, *vecs.values()):
+        TIMERS.count("mfree.plain")
         return mfree_chain_plain(op, inv_taus, bh, dinvh, xh, emit_residual)
     _check_op(op, vecs)
     lib = _build.load()
@@ -342,6 +351,7 @@ def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
             tmp.data_ptr(), res.data_ptr() if res is not None else None,
             _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree_chain")
+    TIMERS.count("mfree.kernel")
     mfree_chain.launches += 1
     return (out, res) if emit_residual else out
 

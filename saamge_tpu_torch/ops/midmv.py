@@ -23,7 +23,9 @@ multiply by the f32 x in f32; the TPU kernel rounds x and each product
 to bf16.  Its lane chunking (``chunk_plan``) is a VMEM budget and is not
 ported.  The kernel's launch plan is ``midmv_plan``; the ctypes geometry
 and plan of an operator are built once and memoised on
-(doffs, rects, bricks, bs)."""
+(doffs, rects, bricks, bs).  The counters ``midmv.kernel`` (a launch of
+csrc/midmv.cu) and ``midmv.plain`` (a pass on the plain route) of
+utils/logging.TIMERS count each call."""
 
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.midsmooth import MAX_OFFSETS
+from saamge_tpu_torch.utils.logging import TIMERS
 
 MODES = {"spmv": 0, "residual": 1, "root": 2}
 TILE = 64             # MIDMV_TILE of csrc/midmv.cu: bricks per block
@@ -148,6 +151,7 @@ def midmv(packed, doffs, rects, bricks, bs: int, x, mode="spmv", b=None,
     if mode == "root":
         vecs["dinv"] = dinv
     if not is_cuda(packed, *vecs.values()):
+        TIMERS.count("midmv.plain")
         return midmv_plain(packed, doffs, rects, bricks, bs, x, mode, b,
                            dinv, inv_tau)
     geom, plan, total = _launch_args(doffs, rects, bricks, bs)
@@ -166,6 +170,7 @@ def midmv(packed, doffs, rects, bricks, bs: int, x, mode="spmv", b=None,
             dinv.data_ptr() if "dinv" in vecs else None, float(inv_tau),
             y.data_ptr(), _build.stream_ptr(x.device))
     _build.check_launch(lib, code, "midmv")
+    TIMERS.count("midmv.kernel")
     midmv.launches += 1
     midmv.mode_launches[mode] += 1
     return y

@@ -305,6 +305,15 @@ def _device_spd_inverse(Ac: np.ndarray, device="cpu") -> torch.Tensor:
 # device-side hierarchy
 
 
+def _widened(M: torch.Tensor) -> torch.Tensor:
+    """M in f32; a copy made for that is counted in
+    ``coarsest.widened_bytes``."""
+    if M.dtype == torch.float32:
+        return M
+    TIMERS.count("coarsest.widened_bytes", M.numel() * 4)
+    return M.to(torch.float32)
+
+
 class StructuredHierarchy(torch.nn.Module):
     """2- or 3-level structured hierarchy.  Arrays are buffers, so
     ``.to(dev)`` moves it; on a CUDA device every kernel of the cycle is
@@ -516,10 +525,11 @@ class StructuredHierarchy(torch.nn.Module):
     def coarsest_correct(self, r1: torch.Tensor) -> torch.Tensor:
         """P1 Ainv R1 r1 on the mid layout.  A bf16 inverse or R1 is
         widened for the product, as XLA promotes the JAX package's
-        mixed-dtype matmuls."""
-        Ainv = self.Ainv.to(torch.float32)
+        mixed-dtype matmuls; the counter ``coarsest.widened_bytes`` of
+        utils/logging.TIMERS adds the bytes of those f32 copies."""
+        Ainv = _widened(self.Ainv)
         if self.R1 is not None:
-            R1 = self.R1.to(torch.float32)
+            R1 = _widened(self.R1)
             return R1.T @ (Ainv @ (R1 @ r1))
         rc2 = self.apply_R1(r1)
         y2 = torch.zeros_like(rc2)
