@@ -582,7 +582,11 @@ def ragged_checks(dev, torch, np, k):
         cases.append((f"sweep {dims} 7 taps", lambda a=a: k["wavefront"](*a),
                       lambda a=a: k["wavefront_plain"](*a), None))
     mfree_h = k["mfree"]
-    for dims in ((13, 17, 19), (9, 29, 31), (5, 37, 41)):
+    # the first three on the flat route; 5 x 23 x 193 (NZn > 127, tiles
+    # ragged along z) and 4 x 39 x 131 (ragged along y and z) on the tiled
+    routes0 = mfree_routes()
+    for dims in ((13, 17, 19), (9, 29, 31), (5, 37, 41), (5, 23, 193),
+                 (4, 39, 131)):
         for dtype in (torch.float32, torch.bfloat16):
             op = random_mfree(k["MatrixFreeQ1"], torch, np, rng, dims, dtype,
                               dev)
@@ -650,6 +654,7 @@ def ragged_checks(dev, torch, np, k):
             if not all(torch.equal(g, o) for g, o in zip(got, other)):
                 raise RuntimeError(f"ragged {what}: not bit-equal to "
                                    f"{same[1]}")
+    expect_routes("ragged", routes0, ("flat", "tiled"))
     log("ragged", cases=len(cases), max_rel_err=f"{worst:.3e}",
         tol="1e-5 (sweep and chains 1e-4)", bit_reproducible=True,
         window_P_ranges_bit_equal_dense_loop=True,
@@ -1005,6 +1010,25 @@ def mfree_passes(mfree_h, op, inv_taus, bh, dinvh, xh, emit_res):
     return (xh, mfree_h("residual", op, xh, bh)) if emit_res else xh
 
 
+def mfree_routes():
+    """The counters of the matrix-free kernel's two routes."""
+    from saamge_tpu_torch.utils.logging import TIMERS
+    return {r: TIMERS.counters.get(f"mfree.route.{r}", 0)
+            for r in ("tiled", "flat")}
+
+
+def expect_routes(phase, before, routes):
+    """Log the routes' launches since ``before``; raise unless each of
+    ``routes`` (None: any) ran and no other did."""
+    now = mfree_routes()
+    ran = {r: now[r] - before[r] for r in now}
+    log(phase, mfree_routes=ran)
+    if routes is not None and any((ran[r] > 0) != (r in routes)
+                                  for r in ran):
+        raise RuntimeError(f"{phase}: mfree routes {ran}, expected only "
+                           f"{routes}")
+
+
 def bit_checks(phase, pairs, torch):
     """Each (name, kernel, other) pair must agree bit for bit."""
     for name, kern, other in pairs:
@@ -1014,6 +1038,33 @@ def bit_checks(phase, pairs, torch):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise RuntimeError(f"{phase} {name}: not bit-equal")
     log(phase, bit_equal=[name for name, _, _ in pairs])
+
+
+def capacity_bit_checks(k, torch, np, dev, dims=(193, 193, 193)):
+    """The capacity phase's bit checks of the matrix-free pass and chain
+    on a random operator at the capacity cell's node grid (n=192): the
+    pass in every mode (f32 c/m for spmv, bf16 for residual and root)
+    against the one-thread-a-node reference, the chain (10 roots +
+    residual, bf16) against its own single passes."""
+    rng = np.random.default_rng(192)
+    ops = {dt: random_mfree(k["MatrixFreeQ1"], torch, np, rng, dims, dt, dev)
+           for dt in (torch.float32, torch.bfloat16)}
+    op32, op16 = ops[torch.float32], ops[torch.bfloat16]
+    xh, bh, dh = sweep_vectors(op32, torch, np, rng, dev)
+    taus = tuple(float(t) for t in rng.uniform(0.3, 0.9, 10))
+    chain = (op16, taus, bh, dh, xh, True)
+    routes0 = mfree_routes()
+    bit_checks(f"capacity {dims}", [
+        (f"mfree {mode}", lambda op=op, mode=mode, kw=kw:
+         k["mfree"](mode, op, xh, **kw),
+         lambda op=op, mode=mode, kw=kw: k["mfree_point"](mode, op, xh, **kw))
+        for mode, op, kw in (("spmv", op32, {}),
+                             ("residual", op16, {"bh": bh}),
+                             ("root", op16, {"bh": bh, "dinvh": dh,
+                                             "inv_tau": 0.7}))]
+        + [("mfree_chain", lambda: k["mfree_chain"](*chain),
+            lambda: mfree_passes(k["mfree"], *chain))], torch)
+    expect_routes(f"capacity {dims}", routes0, ("tiled",))
 
 
 def check_launches(path, launches, must, never):
@@ -1594,10 +1645,8 @@ def synthetic(dev, torch, np, k, device_profile, build):
     log("synthetic", mfree_point_reference_device_ms=f"{point:.4f}")
     one = device_ms(lambda: k["mfree_chain"](op16, taus[:1], bh, dh, xh),
                     torch, device_profile)
-    grid = min(k["mfree_plan"](dims, torch.cuda.get_device_properties(0)
-                               .multi_processor_count).items,
-               3 * torch.cuda.get_device_properties(0)
-               .multi_processor_count)
+    grid = k["mfree_plan"](dims, torch.cuda.get_device_properties(0)
+                           .multi_processor_count).blocks
     per_level("mfree_chain", records[-1]["device_ms"], 11, one, 1,
               barrier(grid), grid)
     del op32, op16, xh, bh, dh, chain
@@ -2296,6 +2345,7 @@ def main() -> int:
         records[-2]["case"] = (f"{len(hc.taus0)} roots + residual, bf16 "
                                "c/m (the smoother twin)")
         records[-1]["case"] = f"spmv, {hc.A1_packed.dtype} packed blocks"
+        routes0 = mfree_routes()
         bit_checks("capacity", [
             (f"mfree {mode}", lambda op=op, mode=mode, kw=kw:
              mfree_h(mode, op, xh, **kw),
@@ -2306,6 +2356,10 @@ def main() -> int:
                                  ("root", C0s, root_kw))]
             + [("mfree_chain", lambda: mfree_chain(*chain_args),
                 lambda: mfree_passes(mfree_h, *chain_args))], torch)
+        # n=96's working set fits the L2: the flat route
+        expect_routes("capacity", routes0,
+                      ("flat",) if args.n == 96 else None)
+        capacity_bit_checks(kern, torch, np, dev)
         b1 = vec(hc.n_flat)
         mode_kw = {"b": b1, "dinv": hc.dinv1, "inv_tau": hc.taus1[0]}
         check_modes("midmv", lambda mode, **kw: midmv(*mv_args, mode, **kw),

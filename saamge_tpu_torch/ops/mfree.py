@@ -30,14 +30,32 @@ saamge_tpu/ops/pallas_mfree.py `_build_mfree`) for CUDA tensors and runs
 smoothing chain and the trailing residual in one cooperative launch of
 the same kernel's body (the JAX package runs them as one pass each,
 saamge_tpu/solve/structured.py `_smooth_h`; ``mfree_chain_plain`` is that
-loop).  The kernel's block owns a tile of the flat (y, z) plane index
-and marches along x over a chunk of planes (``mfree_plan``).  Arithmetic
-is f32; bf16 c and m are widened on load.  ``mfree_point_h`` launches
-the first design (one thread a node), the reference the card's check
-holds the tiled pass to, bit for bit.  The counters ``mfree.kernel`` (a
-launch of csrc/mfree.cu: pass, chain or the one-thread-a-node reference)
-and ``mfree.plain`` (a call on the plain route) of utils/logging.TIMERS
-count each call."""
+loop).  Arithmetic is f32; bf16 c and m are widened on load.
+
+The kernel takes one of two routes, which ``mfree_plan`` picks from the
+dims, and counts it (``mfree.route.tiled`` / ``mfree.route.flat``).
+Tiled, where a level's working set exceeds the L2: a block owns a 2D
+(y, z) tile of the node plane and marches along x over a chunk of
+planes, all tiles of a chunk side by side; a thread holds two nodes
+along z, each plane adds its taps to the three outputs it reaches, and
+a thread carries its tap sums and its c of the plane behind in
+registers, so that only the newest plane goes through shared memory.
+Its windows do not grow with NZn.  It is bound by the bytes from device
+memory: at n=192 (193^3 nodes, ~145 MB a level with the bf16 chain) ~48
+us a level, of which it takes ~90.  Flat, where the working set fits the
+L2 and NZn <= 127: a block owns 512 consecutive nodes of the flat (y, z)
+index and computes each plane whole from a shared ring of four x*m and
+three c planes.  There a level is bound by issue (n=96: ~22 MB, ~8-11 us
+a level), and an item of a few planes takes two steps fewer than on the
+tiled route.  TMA is not used: a haloed vector's y stride (NZn values,
+772 B in f32 at NZn = 193) is not a multiple of 16 B, as a tensor map
+needs.
+
+``mfree_point_h`` launches the first design (one thread a node), the
+reference the card's check holds both routes' passes to, bit for bit.
+The counters ``mfree.kernel`` (a launch of csrc/mfree.cu: pass, chain or
+the one-thread-a-node reference) and ``mfree.plain`` (a call on the
+plain route) of utils/logging.TIMERS count each call."""
 
 from __future__ import annotations
 
@@ -173,45 +191,104 @@ def mfree_plain_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
 
 
 THREADS = 256           # MFREE_THREADS of csrc/mfree.cu
-NODES = 512             # MFREE_NODES: nodes of a tile (two a thread)
+RUN = 2                 # MFREE_RUN: tiled nodes a thread holds, along z
+FLAT = 512              # MFREE_FLAT: nodes of a flat range (two a thread)
+WINDOW = 3              # MFREE_WIN: window positions a thread fetches a plane
 MIN_BLOCKS = 3          # MFREE_MIN_BLOCKS: resident blocks an SM
-MAX_WINDOW = 6          # window values a thread fetches a plane (XW)
+ROUTES = ("tiled", "flat")
+H100_L2 = 50 * 2 ** 20  # L2 bytes of an H100 SXM
+# bytes a haloed node holds in the L2 test: x, out, tmp, res, b, dinv in
+# f32 and c, m (f32 at most)
+NODE_BYTES = 8 * 4
 
 
 class MfreePlan(NamedTuple):
-    """Launch of csrc/mfree.cu: item i is tile ``i % tiles`` (flat plane
-    positions [tile * NODES, (tile + 1) * NODES) of the sx = NYn * NZn)
-    over the planes of chunk ``i // tiles`` ([chunk * planes, (chunk + 1)
-    * planes) of the NXn); ``smem`` bytes hold the ring of four x*m and
-    three c planes."""
-    planes: int
-    tiles: int
-    chunks: int
+    """Launch of csrc/mfree.cu on ``route`` ("tiled" or "flat"): (y, z)
+    tiles of ``ty`` x ``tz`` nodes, ``ky`` x ``kz`` of them (the last of
+    each row or column ragged; flat: ranges of ``tz`` = FLAT consecutive
+    flat (y, z) positions, ``ty`` = 0, ``ky`` = 1); ``blocks`` blocks (the
+    chain runs as many as fit the card at once, up to these), over which
+    the kernel cuts the planes into as many chunks as leave one item (a
+    tile over a chunk) a block; ``smem`` bytes hold the ring (tiled: two
+    slots each of the (ty + 2) x (tz + 2) x*m and c windows, rows of pitch
+    tz + 3; flat: four x*m and three c windows of a range)."""
+    route: str
+    ty: int
+    tz: int
+    ky: int
+    kz: int
+    blocks: int
     smem: int
 
     def ints(self):
-        return tuple(self)
+        return (ROUTES.index(self.route),) + tuple(self[1:])
 
     @property
-    def items(self) -> int:
-        return self.tiles * self.chunks
+    def tiles(self) -> int:
+        return self.ky * self.kz
+
+    @property
+    def pitch(self) -> int:
+        return self.tz + 3
 
 
-def mfree_plan(dims, sms: int = _build.H100_SMS) -> MfreePlan:
-    """Cut the x range into chunks so that the items (tiles x chunks) fill
-    one wave of MIN_BLOCKS blocks on each of ``sms`` SMs."""
+def tile_shape(NYn: int, NZn: int):
+    """(ty, tz, ky, kz): of the tile widths tz in [16, 64] that are
+    multiples of RUN, each with the most rows whose tz / RUN threads a row
+    and (ty + 2) x (tz + 2) window fit a block, then rows evened over the
+    ky tiles, the one with the fewest node slots ky ty kz tz; ties to the
+    wider tile."""
+    best = None
+    for tz in range(16, 65, RUN):
+        ty = min(THREADS // (tz // RUN), WINDOW * THREADS // (tz + 2) - 2)
+        ky, kz = -(-NYn // ty), -(-NZn // tz)
+        ty = -(-NYn // ky)
+        key = (ky * ty * kz * tz, -tz)
+        if best is None or key < best[0]:
+            best = (key, (ty, tz, ky, kz))
+    return best[1]
+
+
+def tiled_plan(dims, sms: int = _build.H100_SMS) -> MfreePlan:
+    """The tiled route: the tile shape from the dims and one wave of
+    MIN_BLOCKS blocks on each of ``sms`` SMs (no more blocks than tile x
+    plane items)."""
     NXn, NYn, NZn = (int(v) for v in dims)
-    sx, sy = NYn * NZn, NZn
-    if NODES + 2 * sy + 2 > MAX_WINDOW * THREADS:
-        raise ValueError(f"NZn = {NZn}: the kernel's x*m window of "
-                         f"{NODES + 2 * sy + 2} nodes exceeds "
-                         f"{MAX_WINDOW} x {THREADS}")
-    tiles = -(-sx // NODES)
-    per = max(1, min(NXn, (MIN_BLOCKS * int(sms)) // tiles))
-    planes = -(-NXn // per)
-    smem = 4 * (4 * (NODES + 2 * sy + 2) + 3 * (NODES + sy + 1))
-    _build.check_plan(THREADS, (tiles * -(-NXn // planes),), smem)
-    return MfreePlan(planes, tiles, -(-NXn // planes), smem)
+    ty, tz, ky, kz = tile_shape(NYn, NZn)
+    blocks = min(MIN_BLOCKS * int(sms), ky * kz * NXn)
+    smem = 4 * 4 * (ty + 2) * (tz + 3)
+    _build.check_plan(THREADS, (blocks,), smem)
+    return MfreePlan("tiled", ty, tz, ky, kz, blocks, smem)
+
+
+def flat_plan(dims, sms: int = _build.H100_SMS) -> MfreePlan:
+    """The flat route: ranges of FLAT flat (y, z) positions and one wave
+    as in ``tiled_plan``; ValueError where a range's x*m window (FLAT +
+    2 NZn + 2 values) exceeds WINDOW values a thread (NZn > 127)."""
+    NXn, NYn, NZn = (int(v) for v in dims)
+    if FLAT + 2 * NZn + 2 > WINDOW * THREADS:
+        raise ValueError(f"NZn = {NZn}: the flat route's x*m window of "
+                         f"{FLAT + 2 * NZn + 2} nodes exceeds "
+                         f"{WINDOW} x {THREADS}")
+    kz = -(-(NYn * NZn) // FLAT)
+    blocks = min(MIN_BLOCKS * int(sms), kz * NXn)
+    smem = 4 * (4 * (FLAT + 2 * NZn + 2) + 3 * (FLAT + NZn + 1))
+    _build.check_plan(THREADS, (blocks,), smem)
+    return MfreePlan("flat", 0, FLAT, 1, kz, blocks, smem)
+
+
+def mfree_plan(dims, sms: int = _build.H100_SMS,
+               l2_bytes: int = H100_L2) -> MfreePlan:
+    """The flat route where a level's working set (NODE_BYTES a haloed
+    node) fits the L2 and its window fits a block (NZn <= 127): there a
+    level runs from L2, is bound by issue, and an item of a few planes
+    takes two steps fewer on the flat route; the tiled route elsewhere."""
+    NXn, NYn, NZn = (int(v) for v in dims)
+    haloed = NXn * NYn * NZn + 2 * q1_halo((NXn, NYn, NZn))
+    if (haloed * NODE_BYTES <= l2_bytes
+            and FLAT + 2 * NZn + 2 <= WINDOW * THREADS):
+        return flat_plan(dims, sms)
+    return tiled_plan(dims, sms)
 
 
 @functools.lru_cache(maxsize=8)
@@ -222,10 +299,13 @@ def _k_array(K):
 
 
 @functools.lru_cache(maxsize=8)
-def _plan_array(dims, device_index: int):
-    sms = torch.cuda.get_device_properties(device_index) \
-        .multi_processor_count
-    return _build.int_array(mfree_plan(dims, sms).ints())
+def _plan(dims, device_index: int):
+    """The card's plan and its launcher array, with the counter name of
+    its route."""
+    props = torch.cuda.get_device_properties(device_index)
+    plan = mfree_plan(dims, props.multi_processor_count,
+                      getattr(props, "L2_cache_size", H100_L2))
+    return _build.int_array(plan.ints()), f"mfree.route.{plan.route}"
 
 
 def _check_op(op: MatrixFreeQ1, vecs: dict) -> None:
@@ -259,7 +339,7 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
     lib = _build.load()
     y = torch.empty_like(xh)
     K = _k_array(op.K)
-    plan = _plan_array(tuple(op.dims), xh.device.index)
+    plan, route = _plan(tuple(op.dims), xh.device.index)
     with torch.cuda.device(xh.device):
         code = lib.saamge_mfree(
             MODES[mode], op.c_h.data_ptr(), op.m_h.data_ptr(),
@@ -270,6 +350,7 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree")
     TIMERS.count("mfree.kernel")
+    TIMERS.count(route)
     mfree_h.launches += 1
     mfree_h.mode_launches[mode] += 1
     return y
@@ -339,7 +420,7 @@ def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
     tmp = torch.empty_like(xh)
     res = torch.empty_like(xh) if emit_residual else None
     K = _k_array(op.K)
-    plan = _plan_array(tuple(op.dims), xh.device.index)
+    plan, route = _plan(tuple(op.dims), xh.device.index)
     taus = _build.float_array(inv_taus)
     with torch.cuda.device(xh.device):
         code = lib.saamge_mfree_chain(
@@ -352,6 +433,7 @@ def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
             _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree_chain")
     TIMERS.count("mfree.kernel")
+    TIMERS.count(route)
     mfree_chain.launches += 1
     return (out, res) if emit_residual else out
 
