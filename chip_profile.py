@@ -46,6 +46,8 @@ import subprocess
 import sys
 import time
 
+from perfbench.harness.timing import host_gap_us, replay_ms
+
 PATHS = ("flagship", "capacity", "contract", "general", "twolevel", "scale",
          "sharded")
 # the device records of the sharded path's halo fills and exchanges:
@@ -92,21 +94,6 @@ def host_launches(prof, torch):
         elif e.name.startswith(("cudaLaunch", "cuLaunch")):
             kernels += 1
     return kernels, graphs
-
-
-def replay_ms(graph, torch, reps=50):
-    """Device time of one replay of ``graph``: ``reps`` replays back to
-    back between two CUDA events."""
-    graph.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        graph.replay()
-    z.record()
-    z.synchronize()
-    return a.elapsed_time(z) / reps
 
 
 def trace_solve(solve, h, b, torch):
@@ -164,7 +151,7 @@ def host_gap(solve, h, b, torch, runner, draws=5):
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
     pro, body = (replay_ms(g, torch) for g in runner.graphs)
-    return wall, pro, body, ((wall - pro) / max(it, 1) - body) * 1e3
+    return wall, pro, body, host_gap_us(wall, it, pro, body)
 
 
 def profile_path(name, h, solve, b, torch, out_dir):

@@ -160,8 +160,10 @@ Phases (one line each; any failure raises and exits non-zero):
                  iteration limits
 Each hierarchy leaves the card before the next arrives, so each path's
 peak device memory is its own, but for ~69 MB a path that stays
-allocated after it (PERF.md §7).  The last two lines are the kernels' JSON
-record and the result line {"ok": true, "device": {...}}.
+allocated after it (PERF.md §7); each ``[leave_card]`` line gives the
+bytes allocated before and after the collection at a path's exit.  The
+last two lines are the kernels' JSON record and the result line
+{"ok": true, "device": {...}}.
 
 Development options (the run with no arguments is the full check):
 ``--n``, ``--brick`` and ``--general-n`` shrink the problems;
@@ -193,6 +195,8 @@ import subprocess
 import sys
 import time
 
+from perfbench.harness.timing import median_ms
+
 FLAGSHIP_DIMS = [18917, 287]          # coarse dims of the n=96 flagship
 PCG_MAX = {1e-6: 19, 1e-8: 25}        # JAX records 18 / 24 at n=96
 GENERAL_DIMS = [16652, 367]           # coarse dims of hexkway n=64
@@ -217,27 +221,6 @@ T0 = time.perf_counter()
 def log(phase, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
-
-
-def median_ms(fn, torch, draws, calls=1):
-    """Median over ``draws`` CUDA-event draws of the mean time of
-    ``calls`` back-to-back calls (several calls per draw keep the card
-    busy across the host's launch overhead for a short kernel)."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(draws):
-        a = torch.cuda.Event(enable_timing=True)
-        z = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        z.record()
-        z.synchronize()
-        times.append(a.elapsed_time(z) / calls)
-    times.sort()
-    return times[len(times) // 2]
 
 
 def device_ms(fn, torch, device_profile, calls=20, windows=3):
@@ -803,6 +786,32 @@ KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
              "contract_R": "contract_R_kernel",
              "contract_P": "contract_P_kernel",
              "blockrow": "blockrow_kernel"}
+# the utils/logging.TIMERS counter of each wrapper's launches (the table
+# of ops/__init__.py); a wrapper with modes counts each as
+# ``<wrapper>.kernel.<mode>``, and its launches are their sum
+COUNTER_OF = {"stencil": "stencil.kernel", "wavefront": "wavefront.kernel",
+              "smoother": "smoother.kernel", "window_R": "window.kernel.R",
+              "window_P": "window.kernel.P", "mid_chain": "midsmooth.kernel",
+              "mfree_chain": "mfree.kernel.chain",
+              "contract_R": "contract.kernel.R",
+              "contract_P": "contract.kernel.P"}
+MODES_OF = {"mfree": ("spmv", "residual", "root"),
+            "midmv": ("spmv", "residual", "root"),
+            "blockrow": ("spmv", "residual", "root", "transpose")}
+
+
+def launch_counts(before):
+    """(launches by wrapper, launches by mode of each wrapper with modes)
+    since ``before``, a copy of the TIMERS counters."""
+    from saamge_tpu_torch.utils.logging import TIMERS
+
+    def grown(k):
+        return TIMERS.counters.get(k, 0) - before.get(k, 0)
+    modes = {w: {m: grown(f"{w}.kernel.{m}") for m in ms}
+             for w, ms in MODES_OF.items()}
+    launches = {w: grown(k) for w, k in COUNTER_OF.items()}
+    launches.update((w, sum(m.values())) for w, m in modes.items())
+    return launches, modes
 
 
 def kernel_records(solve, torch, device_profile, windows=3, lead=1000):
@@ -850,8 +859,8 @@ def agree(path, what, got, ref, exact, torch):
     return rel
 
 
-def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
-              pcg, device_profile, exact=True, cpu_pcg=True, cpu_tol=1e-4):
+def run_slice(path, h, h_cpu, b_np, A_host, torch, np, vcycle, pcg,
+              device_profile, exact=True, cpu_pcg=True, cpu_tol=1e-4):
     """The V-cycle on the card (its captured graph, the default) vs the
     CPU copy and vs the eager cycle; PCG at both tolerances by both
     loops, the eager loop (``graph=False``) first, with the launch
@@ -865,6 +874,7 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
     within 1e-5 relative and one iteration (the general path's
     index_add_).  The result holds the card's V-cycle (on the CPU) as
     ``vcycle``."""
+    from saamge_tpu_torch.utils.logging import TIMERS
     dev = next(h.buffers()).device
     b = torch.as_tensor(b_np, dtype=torch.float32)
     bd = b.to(dev)
@@ -880,16 +890,11 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
 
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated(dev)
-    for w in wrappers.values():
-        w.launches = 0
-        for mode in getattr(w, "mode_launches", ()):
-            w.mode_launches[mode] = 0
+    before = dict(TIMERS.counters)
     _, it6, _ = pcg(h, bd, 1e-6, graph=False)
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    modes = {name: dict(w.mode_launches) for name, w in wrappers.items()
-             if hasattr(w, "mode_launches")}
-    log(path, launches=launches, mode_launches=modes)
+    launches, modes = launch_counts(before)
+    log(path, launches=launches, launches_by_mode=modes)
 
     loops = {}
     for loop in ("eager", "graph"):
@@ -906,7 +911,8 @@ def run_slice(path, h, h_cpu, b_np, A_host, wrappers, torch, np, vcycle,
         pcg8_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         peak_res = torch.cuda.max_memory_reserved(dev)
-        vms = median_ms(lambda: vcycle(h, bd, graph=graph), torch, draws=20)
+        vms = median_ms(lambda: vcycle(h, bd, graph=graph), torch, draws=20,
+                        calls=1)
         loops[loop] = {"x8": x8, "it": (it6l, it8), "out": {
             "pcg_iters_1e6": it6l, "pcg_iters_1e8": it8,
             # the graph loop's first 1e-6 solve captures its graphs
@@ -1258,8 +1264,7 @@ def scale_kernels(h, geo, kern, torch, np, dev):
     return errs
 
 
-def scale_path(n, brick, dev, wrappers, kern, torch, np, vcycle, pcg,
-               device_profile):
+def scale_path(n, brick, dev, kern, torch, np, vcycle, pcg, device_profile):
     """Phase 10: the scale-setup driver at ``n`` with the device RAP and
     the solve on the card; the setup's device Ac against the host
     product and, bit for bit, a second device product; the path's
@@ -1295,8 +1300,8 @@ def scale_path(n, brick, dev, wrappers, kern, torch, np, vcycle, pcg,
     t0 = time.perf_counter()
     h_cpu = copy.deepcopy(h).to("cpu")
     log("scale", cpu_copy_s=f"{time.perf_counter() - t0:.1f}")
-    res = run_slice("scale", h, h_cpu, run.b, run.ml.levels[0].A, wrappers,
-                    torch, np, vcycle, pcg, device_profile)
+    res = run_slice("scale", h, h_cpu, run.b, run.ml.levels[0].A, torch,
+                    np, vcycle, pcg, device_profile)
     del h_cpu
     mid = "mid_chain" if h.mid_route == "resident" else "midmv"
     check_launches("scale", res["launches"],
@@ -1319,7 +1324,13 @@ def scale_path(n, brick, dev, wrappers, kern, torch, np, vcycle, pcg,
 
 
 def leave_card(torch):
+    """Collect garbage and empty the allocator's cache; logs the bytes
+    allocated on the card before and after the collection (what only a
+    cyclic collection would have freed)."""
+    before = torch.cuda.memory_allocated()
     gc.collect()
+    log("leave_card", allocated_before_gc=before,
+        allocated_after_gc=torch.cuda.memory_allocated())
     torch.cuda.empty_cache()
 
 
@@ -1856,7 +1867,7 @@ def multi_card(h, cards, bd, vcycle, pcg, torch):
                                f"shards on one card (mid_replicated={rep})")
 
 
-def sharded_path(h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
+def sharded_path(h, h_cpu, hp, b_np, A_host, torch, np,
                  device_profile, flag_its, device_setup):
     """Phase 9b: the flagship hierarchy ``h`` (on the card) sharded over
     1, 2 and 4 shards of its card, each through the slice (run_slice:
@@ -1875,6 +1886,7 @@ def sharded_path(h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
     from saamge_tpu_torch.parallel.structured_sharded import (
         mid_bytes_per_device, shard_structured)
     from saamge_tpu_torch.solve.structured import struct_vcycle_apply
+    from saamge_tpu_torch.utils.logging import TIMERS
     dev = next(h.buffers()).device
     vcycle, pcg = sharded_solves(torch)
     bd = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
@@ -1889,8 +1901,8 @@ def sharded_path(h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
         # between card and CPU moves a rounded entry by up to one bf16
         # step: the V-cycle holds to the CPU copy's within 2^-8, as the
         # dense mid's does (phase 9)
-        res = run_slice(path, hs, hs_cpu, b_np, A_host, wrappers, torch, np,
-                        vcycle, pcg, device_profile, cpu_pcg=False,
+        res = run_slice(path, hs, hs_cpu, b_np, A_host, torch, np, vcycle,
+                        pcg, device_profile, cpu_pcg=False,
                         cpu_tol=2.0 ** -8)
         check_launches(path, res["launches"],
                        ("stencil", "window_R", "window_P"),
@@ -1916,10 +1928,9 @@ def sharded_path(h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
                                   ("packed", hp, "midmv")):
         path = f"sharded4 replicated {route}"
         hs = shard_structured(hh, ShardMesh([dev] * 4), mid_replicated=True)
-        for w in wrappers.values():
-            w.launches = 0
+        before = dict(TIMERS.counters)
         _, it6, _ = pcg(hs, bd, 1e-6, graph=False)
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = launch_counts(before)[0]
         xe, it8e, _ = pcg(hs, bd, 1e-8, graph=False)
         xg, it8g, _ = pcg(hs, bd, 1e-8)
         _, v_rel = rel_err(vcycle(hs, bd).cpu(), y_flag)
@@ -2029,16 +2040,15 @@ def main() -> int:
                                              window_R, window_R_plain)
     from saamge_tpu_torch.solve.device_pcg import solve_graphs
     from saamge_tpu_torch.utils.logging import TIMERS
-    wrappers = {"stencil": stencil_h, "wavefront": wavefront_smooth,
-                "window_R": window_R, "window_P": window_P,
-                "mid_chain": mid_chain, "mfree": mfree_h,
-                "mfree_chain": mfree_chain, "midmv": midmv,
-                "smoother": smoother_h, "contract_R": contract_R,
-                "contract_P": contract_P, "blockrow": blockrow}
     structured_only = ("wavefront", "window_R", "window_P", "mid_chain",
                        "mfree", "mfree_chain", "midmv", "contract_R",
                        "contract_P")
-    kern = dict(wrappers, midmv_plain=midmv_plain,
+    kern = dict(stencil=stencil_h, wavefront=wavefront_smooth,
+                window_R=window_R, window_P=window_P, mid_chain=mid_chain,
+                mfree=mfree_h, mfree_chain=mfree_chain, midmv=midmv,
+                smoother=smoother_h, contract_R=contract_R,
+                contract_P=contract_P, blockrow=blockrow,
+                midmv_plain=midmv_plain,
                 blockrow_plain=blockrow_plain, BlockRow=BlockRow,
                 contract_R_plain=contract_R_plain,
                 contract_P_plain=contract_P_plain, slot_lists=slot_lists,
@@ -2282,9 +2292,8 @@ def main() -> int:
         del A0, A0s, xh, bh, r_f, xc, b1, x1, mid_args, root_kw, Rc, Pc
         del A0_csr, A1_csr
         if full:
-            flag = run_slice("flagship", h, h_cpu, b_np, A_host, wrappers,
-                             torch, np, struct_vcycle_apply, s_pcg,
-                            device_profile)
+            flag = run_slice("flagship", h, h_cpu, b_np, A_host, torch, np,
+                             struct_vcycle_apply, s_pcg, device_profile)
             check_launches("flagship", flag["launches"],
                            ("stencil", "wavefront", "window_R", "window_P",
                             "mid_chain"),
@@ -2374,9 +2383,8 @@ def main() -> int:
         del C0, C0s, xh, xf, bh, x1, b1, root_kw, mode_kw, mv_args, A1_csr
         del A0_csr, chain_args
         if full:
-            cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, wrappers,
-                            torch, np, struct_vcycle_apply, s_pcg,
-                            device_profile)
+            cap = run_slice("capacity", hc, hc_cpu, b_np, A_host, torch, np,
+                            struct_vcycle_apply, s_pcg, device_profile)
             check_launches("capacity", cap["launches"],
                            ("mfree", "mfree_chain", "midmv", "window_R",
                             "window_P"),
@@ -2456,9 +2464,8 @@ def main() -> int:
              lambda: contract_P(hk.Rst, xck, full_rg))], torch)
         del boxes, xck, full_rg, sl
         if full:
-            con = run_slice("contract", hk, hk_cpu, b_np, A_host, wrappers,
-                            torch, np, struct_vcycle_apply, s_pcg,
-                            device_profile)
+            con = run_slice("contract", hk, hk_cpu, b_np, A_host, torch, np,
+                            struct_vcycle_apply, s_pcg, device_profile)
             check_launches("contract", con["launches"],
                            ("contract_R", "contract_P", "stencil",
                             "wavefront", "mid_chain"),
@@ -2525,9 +2532,8 @@ def main() -> int:
         del gx, gb, G0, lv0
         records += blockrow_kernels(g, kern, torch, np, device_profile, vec)
         if full:
-            gen = run_slice("general", g, g_cpu, b_gen, A_gen, wrappers,
-                            torch, np, vcycle_apply, g_pcg,
-                            device_profile, exact=False)
+            gen = run_slice("general", g, g_cpu, b_gen, A_gen, torch, np,
+                            vcycle_apply, g_pcg, device_profile, exact=False)
             check_launches("general", gen["launches"],
                            ("smoother", "stencil", "blockrow"),
                            structured_only)
@@ -2576,9 +2582,8 @@ def main() -> int:
     # 8. twolevel -------------------------------------------------------
     if "twolevel" in paths and full:
         h2 = copy.deepcopy(h2_cpu).to(dev)
-        two = run_slice("twolevel", h2, h2_cpu, b_np, A_host, wrappers,
-                        torch, np, struct_vcycle_apply, s_pcg,
-                        device_profile)
+        two = run_slice("twolevel", h2, h2_cpu, b_np, A_host, torch, np,
+                        struct_vcycle_apply, s_pcg, device_profile)
         check_launches("twolevel", two["launches"],
                        ("stencil", "wavefront", "window_R", "window_P"),
                        ("mid_chain", "midmv", "mfree", "mfree_chain",
@@ -2630,8 +2635,8 @@ def main() -> int:
             # the 18,917^2 bf16 operator at every matvec, so the CPU copy
             # checks that one V-cycle, not a PCG
             dense = name == "dense_mid"
-            opt = run_slice(name, ho, ho_cpu, b_np, A_host, wrappers, torch,
-                            np, struct_vcycle_apply, s_pcg, device_profile,
+            opt = run_slice(name, ho, ho_cpu, b_np, A_host, torch, np,
+                            struct_vcycle_apply, s_pcg, device_profile,
                             cpu_pcg=not dense,
                             cpu_tol=2.0 ** -8 if dense else 1e-4)
             check_launches(name, opt["launches"], must, nope)
@@ -2660,7 +2665,7 @@ def main() -> int:
         if full:
             hp = copy.deepcopy(hp_cpu).to(dev)
             results["sharded"] = sharded_path(
-                h, h_cpu, hp, b_np, A_host, wrappers, torch, np,
+                h, h_cpu, hp, b_np, A_host, torch, np,
                 device_profile, flag["it"] if flag else None, device_setup)
             del hp
         del h
@@ -2670,7 +2675,7 @@ def main() -> int:
 
     # 10. scale ---------------------------------------------------------
     if "scale" in paths and full:
-        results["scale"] = scale_path(args.scale_n, args.brick, dev, wrappers,
+        results["scale"] = scale_path(args.scale_n, args.brick, dev,
                                       kern, torch, np, struct_vcycle_apply,
                                       s_pcg, device_profile)
         leave_card(torch)

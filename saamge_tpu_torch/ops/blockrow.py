@@ -31,8 +31,9 @@ in four modes:
 ``blockrow`` dispatches: CPU tensors run ``blockrow_plain`` (the packing
 walked in the kernel's order: the executable spec), f32 CUDA tensors
 launch the kernel, other CUDA dtypes run the bucket products.  The
-counters ``blockrow.kernel`` and ``blockrow.plain`` of
-utils/logging.TIMERS count the launches and the plain-route calls."""
+counters ``blockrow.kernel`` (and ``blockrow.kernel.<mode>``) and
+``blockrow.plain`` of utils/logging.TIMERS count the launches and the
+plain-route calls."""
 
 from __future__ import annotations
 
@@ -339,10 +340,5 @@ def blockrow(M: BlockRow, x, mode="spmv", b=None, dinv=None,
             y.data_ptr(), _build.stream_ptr(x.device))
     _build.check_launch(lib, code, "blockrow")
     TIMERS.count("blockrow.kernel")
-    blockrow.launches += 1
-    blockrow.mode_launches[mode] += 1
+    TIMERS.count("blockrow.kernel." + mode)
     return y
-
-
-blockrow.launches = 0
-blockrow.mode_launches = dict.fromkeys(MODES, 0)

@@ -35,6 +35,7 @@ import torch
 
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def extract_boxes(r: torch.Tensor, bricks, brick_elems) -> torch.Tensor:
@@ -223,7 +224,7 @@ def contract_R(Rst, boxes, lists: SlotLists | None = None) -> torch.Tensor:
             ctypes.addressof(plan), boxes.data_ptr(), y.data_ptr(),
             _build.stream_ptr(boxes.device))
     _build.check_launch(lib, code, "contract_R")
-    contract_R.launches += 1
+    TIMERS.count("contract.kernel.R")
     return y
 
 
@@ -244,9 +245,5 @@ def contract_P(Rst, xc, ranges=None) -> torch.Tensor:
             ranges.data_ptr(), bs, box, NB, xc.data_ptr(), C.data_ptr(),
             _build.stream_ptr(xc.device))
     _build.check_launch(lib, code, "contract_P")
-    contract_P.launches += 1
+    TIMERS.count("contract.kernel.P")
     return C
-
-
-contract_R.launches = 0
-contract_P.launches = 0

@@ -55,7 +55,9 @@ needs.
 reference the card's check holds both routes' passes to, bit for bit.
 The counters ``mfree.kernel`` (a launch of csrc/mfree.cu: pass, chain or
 the one-thread-a-node reference) and ``mfree.plain`` (a call on the
-plain route) of utils/logging.TIMERS count each call."""
+plain route) of utils/logging.TIMERS count each call;
+``mfree.kernel.<mode>`` counts the passes of ``mfree_h`` by mode and
+``mfree.kernel.chain`` the chains."""
 
 from __future__ import annotations
 
@@ -351,13 +353,8 @@ def mfree_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
     _build.check_launch(lib, code, "mfree")
     TIMERS.count("mfree.kernel")
     TIMERS.count(route)
-    mfree_h.launches += 1
-    mfree_h.mode_launches[mode] += 1
+    TIMERS.count("mfree.kernel." + mode)
     return y
-
-
-mfree_h.launches = 0
-mfree_h.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def mfree_point_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
@@ -384,11 +381,7 @@ def mfree_point_h(mode: str, op: MatrixFreeQ1, xh, bh=None, dinvh=None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "mfree_point")
     TIMERS.count("mfree.kernel")
-    mfree_point_h.launches += 1
     return y
-
-
-mfree_point_h.launches = 0
 
 
 def mfree_chain_plain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
@@ -434,8 +427,5 @@ def mfree_chain(op: MatrixFreeQ1, inv_taus, bh, dinvh, xh,
     _build.check_launch(lib, code, "mfree_chain")
     TIMERS.count("mfree.kernel")
     TIMERS.count(route)
-    mfree_chain.launches += 1
+    TIMERS.count("mfree.kernel.chain")
     return (out, res) if emit_residual else out
-
-
-mfree_chain.launches = 0

@@ -24,8 +24,8 @@ to bf16.  Its lane chunking (``chunk_plan``) is a VMEM budget and is not
 ported.  The kernel's launch plan is ``midmv_plan``; the ctypes geometry
 and plan of an operator are built once and memoised on
 (doffs, rects, bricks, bs).  The counters ``midmv.kernel`` (a launch of
-csrc/midmv.cu) and ``midmv.plain`` (a pass on the plain route) of
-utils/logging.TIMERS count each call."""
+csrc/midmv.cu, and ``midmv.kernel.<mode>`` by mode) and ``midmv.plain``
+(a pass on the plain route) of utils/logging.TIMERS count each call."""
 
 from __future__ import annotations
 
@@ -171,10 +171,5 @@ def midmv(packed, doffs, rects, bricks, bs: int, x, mode="spmv", b=None,
             y.data_ptr(), _build.stream_ptr(x.device))
     _build.check_launch(lib, code, "midmv")
     TIMERS.count("midmv.kernel")
-    midmv.launches += 1
-    midmv.mode_launches[mode] += 1
+    TIMERS.count("midmv.kernel." + mode)
     return y
-
-
-midmv.launches = 0
-midmv.mode_launches = dict.fromkeys(MODES, 0)

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.utils.logging import TIMERS
 
 MAX_OFFSETS = 27        # SAAMGE_MAX_BOFFS of csrc/common.cuh
 MAX_TILE = 64           # MID_MAX_TILE of csrc/midsmooth.cu: bricks a tile
@@ -216,8 +217,5 @@ def mid_chain(blocks, tiles, plan: MidTilePlan, doffs, rects, bricks,
     _build.check_launch(lib, code, f"mid_chain ({plan.tiles} tiles of "
                         f"{plan.tile} bricks, {plan.threads} threads, "
                         f"{plan.smem} shared bytes)")
-    mid_chain.launches += 1
+    TIMERS.count("midsmooth.kernel")
     return (out, res) if emit_res else out
-
-
-mid_chain.launches = 0

@@ -5,9 +5,10 @@ Replaces saamge_tpu/ops/pallas_smoother.py `_build` (the VMEM-resident
 fused smoother).  On the card the wrapper ``smoother_h`` runs the device
 code of the cooperative sweep (csrc/wavefront.cu: chained roots over
 haloed diagonals, a grid barrier between roots) with f32 values and all
-roots, under its own launch counter so that a run can tell the general
-path's smoother from the structured sweep.  Its plain version is the
-chain of plain stencil root passes, run for CPU tensors.
+roots, under its own launch counter (``smoother.kernel``, one a launch
+of at most MAX_ROOTS roots) so that a run can tell the general path's
+smoother from the structured sweep.  Its plain version is the chain of
+plain stencil root passes, run for CPU tensors.
 
 The TPU kernel exists because a small operator fits in VMEM: its
 ``fits_vmem`` gate ((k + 5) n_pad 4 B <= 10 MiB) is a TPU budget, and
@@ -30,6 +31,7 @@ from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.wavefront import launch_sweep, wavefront_plain
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def smoother_plain(A: DIA, inv_taus, bh, dinvh, xh,
@@ -54,11 +56,8 @@ def smoother_h(A: DIA, inv_taus, bh, dinvh, xh,
         last = j == len(chunks) - 1
         xh, res = launch_sweep(A, chunk, bh, dinvh, xh,
                                emit_residual and last, "smoother")
-        smoother_h.launches += 1
+        TIMERS.count("smoother.kernel")
     return (xh, res) if emit_residual else xh
-
-
-smoother_h.launches = 0
 
 
 def inv_taus_f32(roots) -> tuple:

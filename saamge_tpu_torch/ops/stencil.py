@@ -16,6 +16,7 @@ import torch
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.sparse import DIA, dia_apply_h
+from saamge_tpu_torch.utils.logging import TIMERS
 
 MODES = {"spmv": 0, "residual": 1, "root": 2}
 
@@ -68,9 +69,6 @@ def stencil_h(mode: str, A: DIA, xh, bh=None, dinvh=None,
             vecs["dinv"].data_ptr() if "dinv" in vecs else None,
             float(inv_tau), y.data_ptr(), _build.stream_ptr(xh.device))
     _build.check_launch(lib, code, "stencil")
-    stencil_h.launches += 1
+    TIMERS.count("stencil.kernel")
     return y
-
-
-stencil_h.launches = 0
 

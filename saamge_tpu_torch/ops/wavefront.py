@@ -18,6 +18,7 @@ from saamge_tpu_torch._device import is_cuda
 from saamge_tpu_torch.ops import _build
 from saamge_tpu_torch.ops.sparse import DIA
 from saamge_tpu_torch.ops.stencil import _check_operands, stencil_plain_h
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def wavefront_plain(A: DIA, inv_taus, bh, dinvh, xh,
@@ -63,8 +64,5 @@ def wavefront_smooth(A: DIA, inv_taus, bh, dinvh, xh,
         return wavefront_plain(A, inv_taus, bh, dinvh, xh, emit_residual)
     out, res = launch_sweep(A, inv_taus, bh, dinvh, xh, emit_residual,
                             "wavefront")
-    wavefront_smooth.launches += 1
+    TIMERS.count("wavefront.kernel")
     return (out, res) if emit_residual else out
-
-
-wavefront_smooth.launches = 0

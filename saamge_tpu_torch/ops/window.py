@@ -29,6 +29,7 @@ import torch
 
 from saamge_tpu_torch._device import check, is_cuda
 from saamge_tpu_torch.ops import _build
+from saamge_tpu_torch.utils.logging import TIMERS
 
 
 def _dims(bricks, brick_elems):
@@ -157,7 +158,7 @@ def window_R(Rst, r, bricks, brick_elems) -> torch.Tensor:
             ctypes.addressof(geom), ctypes.addressof(plan), r.data_ptr(),
             yc.data_ptr(), _build.stream_ptr(r.device))
     _build.check_launch(lib, code, "window_R")
-    window_R.launches += 1
+    TIMERS.count("window.kernel.R")
     return yc
 
 
@@ -205,9 +206,5 @@ def window_P(Rst, xc, bricks, brick_elems, ranges=None) -> torch.Tensor:
             ranges.data_ptr(), ctypes.addressof(geom), xc.data_ptr(),
             y.data_ptr(), _build.stream_ptr(xc.device))
     _build.check_launch(lib, code, "window_P")
-    window_P.launches += 1
+    TIMERS.count("window.kernel.P")
     return y
-
-
-window_R.launches = 0
-window_P.launches = 0

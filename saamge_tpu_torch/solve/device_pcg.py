@@ -11,7 +11,9 @@ and abs_tol (a new tolerance is a new value, not a new capture, as the
 JAX package's device scalars), and the flag go = nom > lim.  Two
 functions rewrite that state in place: ``prologue`` (z = M r0, nom0 =
 z . r0, lim, d = z, Ad = A z) and ``body``, one iteration in the op
-order of the JAX ``_struct_pcg`` / ``_pcg_solve`` body.
+order of the JAX ``_struct_pcg`` / ``_pcg_solve`` body.  Both take the
+operator, the preconditioner and the inner product from the solve that
+runs them; the runner keeps none of them.
 
 On the card the two are captured once each in a ``torch.cuda.CUDAGraph``
 (after a warm-up on a side stream, which builds the kernels and does
@@ -27,17 +29,23 @@ that eager loop on the card.  Nothing else chooses it: a capture that
 fails raises.
 
 ``GraphedApply`` is one V-cycle the same way: a static input buffer, the
-function captured once, the output cloned on return.
+function of the first call captured, the output cloned on return.
 
-Each hierarchy keeps its runners and V-cycle graph in ``solve_graphs(h)``,
+Each hierarchy owns its runners and V-cycle graph in ``solve_graphs(h)``,
 remade when its buffers have moved (``.to``) and left behind by
-``copy.deepcopy``.  Graph temporaries come from the graphs' private
-memory pools (one shared by a runner's two graphs, one for the V-cycle).
+``copy.deepcopy``.  The table holds no reference back to the hierarchy:
+the functions that reach it (bound methods, closures over it) are
+arguments of each solve and each apply, used there to capture or to run
+eagerly, and a replay runs no Python.  So a hierarchy, its graphs and
+their memory go at its last ``del``, with no wait for a cyclic garbage
+collection.  Graph temporaries come from the graphs' private memory
+pools (one shared by a runner's two graphs, one for the V-cycle).
 
-Launch counters: the kernels' wrappers count a launch when they run, so
-an eager solve counts every launch, and a graph solve only those of the
-warm-up and the capture (a replay runs no Python).  A run that counts
-the kernels of a replay reads the profiler's kernel records.
+Launch counters: the kernels' wrappers count a launch in
+utils/logging.TIMERS when they run (ops/__init__.py), so an eager solve
+counts every launch, and a graph solve only those of the warm-up and the
+capture (a replay runs no Python).  A run that counts the kernels of a
+replay reads the profiler's kernel records.
 
 Tracing (utils/logging.TIMERS): every solve is the phases
 ``pcg.prologue`` (load and prologue launch) and ``pcg.loop`` (whose call
@@ -55,6 +63,7 @@ iteration loop is the one above."""
 from __future__ import annotations
 
 from contextlib import nullcontext
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -75,18 +84,13 @@ def _warm_up(*fns) -> None:
 
 
 class PCGRunner:
-    """The PCG loop of one operator and preconditioner on static state;
-    ``with_x0`` runs the prologue from the initial guess in ``x``.
-    ``dot`` is the inner product (a sharded solve counts the planes that
-    two shards share once, parallel/structured_sharded.py); ``like`` may
-    be a sharded vector (parallel/mesh.ShardTensor), whose shards all
-    hold the same scalars and flag."""
+    """The PCG loop on static state; ``with_x0`` runs the prologue from
+    the initial guess in ``x``.  ``like`` may be a sharded vector
+    (parallel/mesh.ShardTensor), whose shards all hold the same scalars
+    and flag."""
 
-    def __init__(self, matvec: Callable, precond: Callable,
-                 like: torch.Tensor, with_x0: bool = False,
-                 dot: Callable = torch.dot):
-        self.matvec, self.precond, self.with_x0 = matvec, precond, with_x0
-        self.dot = dot
+    def __init__(self, like: torch.Tensor, with_x0: bool = False):
+        self.with_x0 = with_x0
         self.b, self.x, self.r, self.d, self.Ad = (
             torch.zeros_like(like) for _ in range(5))
         self.nom, self.lim, self.rel_tol, self.abs_tol = (
@@ -104,31 +108,33 @@ class PCGRunner:
                                        pin_memory=True)
             self.go_ready = torch.cuda.Event()
 
-    def prologue(self) -> None:
+    def prologue(self, matvec: Callable, precond: Callable,
+                 dot: Callable) -> None:
         if self.with_x0:
-            r = self.b - self.matvec(self.x)
+            r = self.b - matvec(self.x)
         else:
             self.x.zero_()
             r = self.b
-        z = self.precond(r)
-        nom = self.dot(z, r)
+        z = precond(r)
+        nom = dot(z, r)
         self.r.copy_(r)
         self.d.copy_(z)
-        self.Ad.copy_(self.matvec(z))
+        self.Ad.copy_(matvec(z))
         self.nom.copy_(nom)
         torch.maximum(nom * self.rel_tol * self.rel_tol,
                       self.abs_tol * self.abs_tol, out=self.lim)
         torch.gt(self.nom, self.lim, out=self.go)
 
-    def body(self) -> None:
+    def body(self, matvec: Callable, precond: Callable,
+             dot: Callable) -> None:
         x, r, d, Ad, nom = self.x, self.r, self.d, self.Ad, self.nom
-        alpha = nom / self.dot(d, Ad)
+        alpha = nom / dot(d, Ad)
         x.add_(alpha * d)
         r.sub_(alpha * Ad)
-        z = self.precond(r)
-        betanom = self.dot(r, z)
+        z = precond(r)
+        betanom = dot(r, z)
         torch.add(z, (betanom / nom) * d, out=d)
-        Ad.copy_(self.matvec(d))
+        Ad.copy_(matvec(d))
         nom.copy_(betanom)
         torch.gt(nom, self.lim, out=self.go)
 
@@ -139,18 +145,18 @@ class PCGRunner:
         self.rel_tol.fill_(rel_tol)
         self.abs_tol.fill_(abs_tol)
 
-    def _capture(self):
+    def _capture(self, prologue: Callable, body: Callable):
         """Warm up on a side stream, then capture the prologue and the
         body (one memory pool, captured and replayed in that order)."""
         with TIMERS.phase("graph.capture"):
-            _warm_up(self.prologue, self.body)
-            pro, body = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            _warm_up(prologue, body)
+            pro, graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
             with torch.cuda.graph(pro):
-                self.prologue()
-            with torch.cuda.graph(body, pool=pro.pool()):
-                self.body()
+                prologue()
+            with torch.cuda.graph(graph, pool=pro.pool()):
+                body()
         TIMERS.count("graph.captures", 2)
-        return pro, body
+        return pro, graph
 
     def _going(self) -> bool:
         """The flag go, read on the host after the work that sets it."""
@@ -201,21 +207,27 @@ class PCGRunner:
         return [(name, a0.elapsed_time(a), a0.elapsed_time(z))
                 for name, a, z in self.timeline]
 
-    def solve(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+    def solve(self, matvec: Callable, precond: Callable, dot: Callable,
+              b: torch.Tensor, x0: Optional[torch.Tensor] = None,
               rel_tol: float = 1e-6, abs_tol: float = 0.0,
               max_iter: int = 200, graph: bool = True):
-        """Returns (x, iterations, final (B r, r)); x and the scalar are
-        copies, so the next solve leaves them as they are."""
+        """PCG with operator ``matvec``, preconditioner ``precond`` and
+        inner product ``dot`` (a sharded solve counts the planes that two
+        shards share once, parallel/structured_sharded.py): captured from
+        them on the first solve on the card, run eagerly with them on the
+        CPU or with ``graph=False``.  Returns (x, iterations, final (B r,
+        r)); x and the scalar are copies, so the next solve leaves them as
+        they are."""
         on_card = self.b.device.type == "cuda"
         with torch.cuda.device(self.b.device) if on_card else nullcontext():
+            prologue = partial(self.prologue, matvec, precond, dot)
+            body = partial(self.body, matvec, precond, dot)
             if graph and on_card:
                 if self.graphs is None:
                     # the warm-up runs on the loaded state
                     self._load(b, x0, rel_tol, abs_tol)
-                    self.graphs = self._capture()
+                    self.graphs = self._capture(prologue, body)
                 prologue, body = (g.replay for g in self.graphs)
-            else:
-                prologue, body = self.prologue, self.body
             tracing = TIMERS.tracing
             with TIMERS.phase("pcg.prologue"):
                 self._load(b, x0, rel_tol, abs_tol)
@@ -237,24 +249,23 @@ class PCGRunner:
 
 
 class GraphedApply:
-    """y = fn(x) for x of one shape and dtype, captured once in a CUDA
-    graph on ``like``'s card: a static input buffer, replayed, the
-    output cloned on return."""
+    """y = fn(x) for x of one shape and dtype, ``fn`` of the first call
+    captured in a CUDA graph on ``like``'s card: a static input buffer,
+    replayed, the output cloned on return."""
 
-    def __init__(self, fn: Callable, like: torch.Tensor):
-        self.fn = fn
+    def __init__(self, like: torch.Tensor):
         self.x = torch.zeros_like(like)
         self.graph = self.y = None
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(self.x.device):
             self.x.copy_(x)
             if self.graph is None:
                 with TIMERS.phase("graph.capture"):
-                    _warm_up(lambda: self.fn(self.x))
+                    _warm_up(lambda: fn(self.x))
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(graph):
-                        self.y = self.fn(self.x)
+                        self.y = fn(self.x)
                 TIMERS.count("graph.captures")
                 self.graph = graph
             self.graph.replay()
@@ -302,9 +313,10 @@ def pcg(h: torch.nn.Module, matvec: Callable, precond: Callable,
     # coarsest restriction, mid format and route) and every sharding of
     # one (parallel/structured_sharded.py) is a hierarchy of its own
     key = ("pcg", b.dtype, b.device, x0 is not None)
-    runner = solve_graphs(h).get(
-        key, h, lambda: PCGRunner(matvec, precond, b, x0 is not None, dot))
-    return runner.solve(b, x0, rel_tol, abs_tol, max_iter, graph)
+    runner = solve_graphs(h).get(key, h,
+                                 lambda: PCGRunner(b, x0 is not None))
+    return runner.solve(matvec, precond, dot, b, x0, rel_tol, abs_tol,
+                        max_iter, graph)
 
 
 def graphed(h: torch.nn.Module, fn: Callable, b: torch.Tensor,
@@ -314,4 +326,4 @@ def graphed(h: torch.nn.Module, fn: Callable, b: torch.Tensor,
     if not (graph and b.device.type == "cuda"):
         return fn(b)
     key = ("graphed", b.dtype, b.device)   # one V-cycle a hierarchy, as pcg
-    return solve_graphs(h).get(key, h, lambda: GraphedApply(fn, b))(b)
+    return solve_graphs(h).get(key, h, lambda: GraphedApply(b))(fn, b)

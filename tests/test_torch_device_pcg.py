@@ -13,6 +13,8 @@ iteration count and (B r, r) bit-equal to the textbook loop, which does
 the same operations in the same order."""
 
 import copy
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -34,6 +36,9 @@ from saamge_tpu_torch.api import (SpectralAMGSolver,  # noqa: E402
 from saamge_tpu_torch.config import SolverOptions  # noqa: E402
 from saamge_tpu_torch.fem import assemble  # noqa: E402
 from saamge_tpu_torch.fem.mesh import quad_mesh  # noqa: E402
+from saamge_tpu_torch.parallel.mesh import ShardMesh  # noqa: E402
+from saamge_tpu_torch.parallel.structured_sharded import (  # noqa: E402
+    make_struct_sharded_pcg, scatter_fine, shard_structured)
 from saamge_tpu_torch.solve import compiled as C  # noqa: E402
 from saamge_tpu_torch.solve.device_pcg import solve_graphs  # noqa: E402
 
@@ -210,3 +215,39 @@ def test_fresh_rhs_through_one_runner(path, structured, general):
         xf, itf, nomf = solve(fresh, torch.as_tensor(bb), rel_tol=1e-8)
         fresh = copy.deepcopy(h)
         assert it == itf and torch.equal(x, xf) and torch.equal(nom, nomf)
+
+
+def _solve_once(path, h, b):
+    if path == "structured":
+        return struct_pcg_solve(h, b)
+    if path == "general":
+        return C.pcg_solve(h, b)
+    return make_struct_sharded_pcg(h)(scatter_fine(h, b))
+
+
+@pytest.mark.parametrize("path", PATHS + ("sharded",))
+def test_solved_hierarchy_freed_at_del(path, structured, general):
+    """A hierarchy's solve table holds no reference back to it: with the
+    cyclic garbage collector off, a hierarchy that has solved goes at
+    its last ``del``; while it is kept, a second solve reuses its
+    runner."""
+    if path == "general":
+        h, b = copy.deepcopy(general[0]), torch.as_tensor(general[2])
+    else:
+        h16, b = structured[1], torch.as_tensor(structured[3])
+        h = (copy.deepcopy(h16) if path == "structured"
+             else shard_structured(h16, ShardMesh(["cpu"] * 2)))
+    gc.disable()
+    try:
+        _solve_once(path, h, b)
+        table = solve_graphs(h).items
+        runners = [v[1] for v in table.values()]
+        _solve_once(path, h, b)
+        assert len(runners) == 1
+        assert [v[1] for v in table.values()] == runners
+        del table, runners
+        ref = weakref.ref(h)
+        del h
+        assert ref() is None
+    finally:
+        gc.enable()
