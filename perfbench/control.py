@@ -65,7 +65,7 @@ def readings_of(cell, seed, seconds, device="cuda") -> dict:
     run.loop.window(seconds)
     out = {}
     for name, answers in variants(run, torch).items():
-        nums = readings(answers, run.problem, cell.limits["check_block"],
+        nums = readings(run.ref, answers, run.problem, cell.limits,
                         device, torch)
         out[name] = {k: max(r[k] for r in nums) for k in nums[0]}
     out["requests"] = len(run.records)

@@ -18,7 +18,8 @@ from perfbench.harness.traffic import LOOPS
 class Run:
     """What a metric's reader (``read(run)``) can read: the cell, the
     window's records, the spans, the program while it lives, and the
-    trace of the mix's traced stretch (made when first asked for)."""
+    trace of the mix's traced stretch (made when first asked for).
+    ``ref`` is the configuration's reference module, loaded once."""
 
     def __init__(self, cell: specs.Cell, seed: int, device, torch):
         self.cell, self.seed, self.device, self.torch = cell, seed, device, torch
@@ -26,6 +27,7 @@ class Run:
         self.mix = cell.mix
         self.problem = cell.problem
         self.entry = specs.load_module("entries", cell.config["entry"])
+        self.ref = specs.load_module("reference", cell.config["reference"])
         self.spans = Spans()
         self.loop = LOOPS[cell.mix["loop"]](self)
         self.setup_s = self.window_s = None
@@ -101,8 +103,8 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if run.on_card:
         torch.cuda.empty_cache()
-    numbers = readings(run.loop.answers(), run.problem,
-                       cell.limits["check_block"], device, torch)
+    numbers = readings(run.ref, run.loop.answers(), run.problem,
+                       cell.limits, device, torch)
     bad, checks = judge(numbers, cell.limits)
     result["failed"] = not_converged + bad
     result["correct"] = result["failed"] == 0 and len(numbers) > 0

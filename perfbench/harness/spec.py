@@ -3,8 +3,9 @@
 A cell names a configuration (``file`` in ``configs``) and a traffic mix
 (``perfbench/traffic/<traffic>.json``); its limits are
 ``perfbench/limits/<cell>.json``; a configuration's ``entry`` is
-``perfbench/entries/<entry>.py`` and each metric's reader is
-``perfbench/metrics/<metric>.py``."""
+``perfbench/entries/<entry>.py``, its ``reference`` (the plain reference
+that its answers are judged by) is ``perfbench/reference/<reference>.py``,
+and each metric's reader is ``perfbench/metrics/<metric>.py``."""
 
 from __future__ import annotations
 
@@ -22,11 +23,17 @@ def load_json(path: str) -> dict:
         return json.load(f)
 
 
-def load_module(kind: str, name: str):
-    """``perfbench/<kind>/<name>.py`` as a module (names may hold dots)."""
+def module_path(kind: str, name: str) -> str:
+    """``perfbench/<kind>/<name>.py``; raises if there is no such file."""
     path = os.path.join(BENCH_DIR, kind, name + ".py")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no {kind} module {name!r} ({path})")
+    return path
+
+
+def load_module(kind: str, name: str):
+    """``perfbench/<kind>/<name>.py`` as a module (names may hold dots)."""
+    path = module_path(kind, name)
     mod_name = f"perfbench_{kind}_" + name.replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -74,6 +81,9 @@ def find_cell(name: str, root: str = ROOT) -> Cell:
     w = cells[name]
     cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
     config = load_json(os.path.join(root, cfg["file"]))
+    if "reference" not in config:
+        raise KeyError(f"configuration {w['config']!r} names no reference")
+    module_path("reference", config["reference"])
     mix = load_json(os.path.join(BENCH_DIR, "traffic", w["traffic"] + ".json"))
     limits = load_json(os.path.join(BENCH_DIR, "limits", name + ".json"))
     e2e = reported(spec["end_to_end"], name)

@@ -1,17 +1,21 @@
 """The one traffic generator: it reads a mix (``perfbench/traffic/<mix>
-.json``) and drives the program by the mix's ``loop``.
+.json``) and drives the program by the mix's ``loop``.  The sources and
+load vectors come from the configuration's reference (``Run.ref``,
+``perfbench/reference/<reference>.py``), which also says how many dofs the
+program has to solve for: set-up raises where the program's differ.
 
 - ``rhs_stream``: one operator, set up and compiled once; a closed loop of
   one caller that solves to ``rel_tol`` from x0 = 0 with the next load
-  vector of a ring of ``ring``, each the load of a source constant on cubes
-  of ``source_block`` elements a side, U(-1, 1) a cube, all drawn from the
+  vector of a ring of ``ring``, each the load of the reference's
+  ``block_source`` with ``source_block`` (for Q1 diffusion: constant on
+  cubes of that many elements a side, U(-1, 1) a cube), all drawn from the
   seed, assembled at set-up and held on the card.  A reservoir sample of
   ``answers_kept`` solutions, drawn from the seed, is kept on the card for
   the comparison.
 - ``mc_samples``: a closed loop of Monte Carlo samples; each draws a new
   coefficient field from the seed, runs the setup and the compile, and
-  solves the constant load to ``rel_tol``.  The mix's ``problem`` keys set
-  the samples' size.
+  solves the load of the reference's ``constant_source`` to ``rel_tol``.
+  The mix's ``problem`` keys set the samples' size.
 
 Every solve is timed from the call until its x is on the card, by CUDA
 events on the card (host clock on the CPU) and by the host clock."""
@@ -25,7 +29,6 @@ import numpy as np
 
 from perfbench.harness import trace as tracing
 from perfbench.harness.program import eig_seconds
-from perfbench.reference.q1_diffusion import block_source, load_vector
 
 # labels of the seeds drawn from the run's seed
 COEF, RHS, KEEP, SAMPLE, WARM, TRACE = range(1, 7)
@@ -40,6 +43,15 @@ def derive(seed: int, *path: int) -> int:
 def _sync(run):
     if run.on_card:
         run.torch.cuda.synchronize()
+
+
+def check_ndof(run, prog) -> None:
+    """Raises where the program solves for another number of dofs than the
+    configuration's reference holds (its answers could not be judged)."""
+    want = run.ref.ndof(run.problem)
+    if prog.ndof != want:
+        raise ValueError(f"the program has {prog.ndof} dofs, the reference "
+                         f"{run.cell.config['reference']!r} {want}")
 
 
 class RhsStream:
@@ -58,11 +70,13 @@ class RhsStream:
             self.prog = run.entry.compile(p, product, run.device)
             _sync(run)
         del product
+        check_ndof(run, self.prog)
+        ref = run.ref
         rng = np.random.default_rng(derive(run.seed, RHS))
-        self.sources = [block_source(p["n"], mix["source_block"], rng)
+        self.sources = [ref.block_source(p, mix["source_block"], rng)
                         for _ in range(mix["ring"])]
         self.ring = torch.stack([
-            torch.as_tensor(load_vector(p["n"], f), dtype=torch.float32)
+            torch.as_tensor(ref.load_vector(p, f), dtype=torch.float32)
             for f in self.sources]).to(run.device)
         self.kept = torch.zeros((mix["answers_kept"], self.prog.ndof),
                                 dtype=torch.float32, device=run.device)
@@ -142,10 +156,9 @@ class McSamples:
         self.records = []
 
     def setup(self):
-        run, torch = self.run, self.run.torch
-        n = run.problem["n"]
-        self.source = np.ones(n ** 3)
-        self.b = torch.as_tensor(load_vector(n, self.source),
+        run, torch, ref = self.run, self.run.torch, self.run.ref
+        self.source = ref.constant_source(run.problem)
+        self.b = torch.as_tensor(ref.load_vector(run.problem, self.source),
                                  dtype=torch.float32, device=run.device)
         for w in range(self.mix["warmup_requests"]):
             self.sample(derive(run.seed, WARM, w))
@@ -164,6 +177,7 @@ class McSamples:
             del product
             _sync(run)
         t2 = time.perf_counter()
+        check_ndof(run, prog)
         with spans("sample.solve"):
             x, it = prog.solve(self.b, self.mix["rel_tol"],
                                self.mix["max_iter"])

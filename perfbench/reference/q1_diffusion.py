@@ -8,7 +8,22 @@ operator is applied element by element from the exact element matrix of a
 cube (tensor products of the 1D stiffness and mass matrices); the essential
 dofs keep their diagonal and lose every other entry of their rows and
 columns, and their load is zero.  Plain torch in the caller's dtype (float64
-for the comparison), nothing of the program under test."""
+for the comparison), nothing of the program under test.
+
+The interface the harness reads from the module that a configuration's
+``reference`` names (``problem`` is the run's problem dict: the
+configuration with the mix's ``problem`` keys laid over it):
+
+- ``operator(problem, coef_seed, device)``: the float64 operator ``op(x)``;
+- ``block_source(problem, block, rng)``: one ring entry's source;
+- ``constant_source(problem)``: the source of the Monte Carlo load;
+- ``load_vector(problem, source)``: float64, ``ndof(problem)`` entries;
+- ``ndof(problem)``;
+- ``residuals(op, b, x, block)``: the numbers named as the keys of the
+  limits file's ``limits``.
+
+``block_source`` and ``load_vector`` also take ``n`` in place of the
+problem, as the other functions here do."""
 
 from __future__ import annotations
 
@@ -89,10 +104,32 @@ class Q1Operator:
         return torch.where(self.ess, self.diag * x, y)
 
 
-def load_vector(n: int, f_elem: np.ndarray) -> np.ndarray:
+def _n(problem) -> int:
+    """n of a run's problem dict, or n itself."""
+    return problem["n"] if isinstance(problem, dict) else problem
+
+
+def operator(problem: dict, coef_seed: int, device) -> Q1Operator:
+    """The float64 operator of the field that ``coef_seed`` draws."""
+    n = problem["n"]
+    return Q1Operator(n, coefficients(n, problem["contrast"], coef_seed),
+                      device)
+
+
+def ndof(problem: dict) -> int:
+    return (problem["n"] + 1) ** 3
+
+
+def constant_source(problem: dict) -> np.ndarray:
+    """f = 1 on every element."""
+    return np.ones(problem["n"] ** 3)
+
+
+def load_vector(problem, f_elem: np.ndarray) -> np.ndarray:
     """b_i = sum over the elements e at node i of f_e |e| / 8 (the exact
     integral of f times the hat function for f constant per element),
     zero on the boundary nodes."""
+    n = _n(problem)
     f = np.asarray(f_elem, dtype=np.float64).reshape(n, n, n) / n ** 3 / 8.0
     b = np.zeros((n + 1,) * 3)
     for c in CORNERS:
@@ -102,9 +139,10 @@ def load_vector(n: int, f_elem: np.ndarray) -> np.ndarray:
     return b
 
 
-def block_source(n: int, block: int, rng: np.random.Generator) -> np.ndarray:
+def block_source(problem, block: int, rng: np.random.Generator) -> np.ndarray:
     """f per element, constant on cubes of ``block`` elements a side, each
     value U(-1, 1) from ``rng``."""
+    n = _n(problem)
     nb = -(-n // block)
     vals = rng.uniform(-1.0, 1.0, (nb, nb, nb))
     idx = np.arange(n) // block
