@@ -106,6 +106,21 @@ Phases (one line each; any failure raises and exits non-zero):
                  plain block-row route (counters ``blockrow.kernel`` /
                  ``blockrow.plain``); the kernels of one body replay of
                  the PCG graph, counted from profiler records
+  7b. elasticity -- 3D linear elasticity on the general path
+                 (``elasticity_problem``: 206,763 dofs at n=40, one face
+                 clamped, k-way agglomerates of 128 / 64 elements, the
+                 rigid-body modes; device setup as phase 7): its finest
+                 level must be the node-block format (27 offsets, 10
+                 roots) and ``vstencil.bytes`` the bytes of its values;
+                 the node-block kernel (csrc/vstencil.cu) in each mode at
+                 the level's shapes against vstencil_plain, beside the
+                 plain ELL product or chain of the same level (the
+                 record's library times), and bit for bit against it on
+                 ragged node grids (27 and 7 offsets, 1 / 10 / 33 roots,
+                 +- residual); then the slice (no CPU PCG); its PCG
+                 launches the node-block chain and pass and the
+                 block-row kernel, and no fused smoother, stencil or
+                 plain node-block route
   8. twolevel -- the flagship setup's level 0 alone (a two-level
                  hierarchy: its coarsest level is the flagship's mid
                  level, 18,917 dofs at n=96), compiled on the card in
@@ -166,9 +181,9 @@ last two lines are the kernels' JSON record and the result line
 {"ok": true, "device": {...}}.
 
 Development options (the run with no arguments is the full check):
-``--n``, ``--brick`` and ``--general-n`` shrink the problems;
-``--paths`` runs some of flagship, capacity, contract, general,
-twolevel, options, sharded and scale; ``--scale-n 200`` runs the scale path at
+``--n``, ``--brick``, ``--general-n`` and ``--elasticity-n`` shrink the
+problems; ``--paths`` runs some of flagship, capacity, contract,
+general, elasticity, twolevel, options, sharded and scale; ``--scale-n 200`` runs the scale path at
 the driver's default size (8,120,601 dofs);
 ``--kernels-only`` stops each path after its kernel phase (no V-cycle,
 no PCG); ``--host-setup`` builds both paths' hierarchies with the host
@@ -208,8 +223,8 @@ GENERAL_JAX = {100: ([61300, 1984], [23, 30])}
 # plus 1; at n=200 the JAX record's 29 (PARITY.md) and the card's 39, plus 1
 SCALE_PCG_MAX = {128: {1e-6: 23, 1e-8: 30}, 200: {1e-6: 30, 1e-8: 40}}
 TOLS = (1e-6, 1e-8)
-PATHS = ("flagship", "capacity", "contract", "general", "twolevel",
-         "options", "sharded", "scale")
+PATHS = ("flagship", "capacity", "contract", "general", "elasticity",
+         "twolevel", "options", "sharded", "scale")
 # the paths built on the flagship setup
 STRUCTURED = ("flagship", "capacity", "contract", "twolevel", "options",
               "sharded")
@@ -784,7 +799,10 @@ KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
              "mfree_chain": "mfree_chain_kernel", "midmv": "midmv_kernel",
              "contract_R": "contract_R_kernel",
              "contract_P": "contract_P_kernel",
-             "blockrow": "blockrow_kernel"}
+             "blockrow": "blockrow_kernel",
+             "vstencil_chain": "vstencil_chain_kernel",
+             "vstencil_spmv": "vstencil_pass_kernel",
+             "vstencil_residual": "vstencil_pass_kernel"}
 # the utils/logging.TIMERS counter of each wrapper's launches (the table
 # of ops/__init__.py); a wrapper with modes counts each as
 # ``<wrapper>.kernel.<mode>``, and its launches are their sum
@@ -793,7 +811,11 @@ COUNTER_OF = {"stencil": "stencil.kernel", "wavefront": "wavefront.kernel",
               "window_P": "window.kernel.P", "mid_chain": "midsmooth.kernel",
               "mfree_chain": "mfree.kernel.chain",
               "contract_R": "contract.kernel.R",
-              "contract_P": "contract.kernel.P"}
+              "contract_P": "contract.kernel.P",
+              "vstencil_chain": "vstencil.kernel.chain",
+              "vstencil_spmv": "vstencil.kernel.spmv",
+              "vstencil_residual": "vstencil.kernel.residual"}
+VSTENCIL = ("vstencil_chain", "vstencil_spmv", "vstencil_residual")
 MODES_OF = {"mfree": ("spmv", "residual", "root"),
             "midmv": ("spmv", "residual", "root"),
             "blockrow": ("spmv", "residual", "root", "transpose")}
@@ -1070,6 +1092,111 @@ def capacity_bit_checks(k, torch, np, dev, dims=(193, 193, 193)):
         + [("mfree_chain", lambda: k["mfree_chain"](*chain),
             lambda: mfree_passes(k["mfree"], *chain))], torch)
     expect_routes(f"capacity {dims}", routes0, ("tiled",))
+
+
+def fmt(M):
+    """A device matrix's format name (a block-row one with its buckets)."""
+    nb = getattr(getattr(M, "base", M), "nbuckets", None)
+    return type(M).__name__ + (f"[{nb} buckets]" if nb else "")
+
+
+def random_node_block(NodeBlock, torch, np, rng, dims, k, dev):
+    """A diagonally dominant random node-block operator on a ``dims``
+    node grid: the first ``k`` of the grid's 27 node offsets (the centre
+    among them), blocks U(-0.01, 0.01) and the centre block the identity
+    plus them, so that chained roots with dinv in [0.5, 1] stay bounded."""
+    offs = stencil_offsets(dims)
+    offs = sorted(set(offs[:k - 1]) | {0})
+    N = dims[0] * dims[1] * dims[2]
+    vals = rng.uniform(-0.01, 0.01, (len(offs), 3, 3, N))
+    vals[offs.index(0)] += np.eye(3)[:, :, None]
+    return NodeBlock(torch.as_tensor(vals, dtype=torch.float32).to(dev),
+                     offs)
+
+
+def vstencil_ragged(dev, torch, np, kern):
+    """The node-block kernel in each mode on ragged node grids (27 and 7
+    offsets; chains of 1, 10 and 33 roots -- two launches --, with and
+    without the residual), bit for bit against vstencil_plain on the
+    same card tensors; returns the number of cases."""
+    vstencil, plain = kern["vstencil"], kern["vstencil_plain"]
+    rng = np.random.default_rng(11)
+    cases = 0
+    for dims, k in (((13, 17, 19), 27), ((9, 29, 31), 27), ((5, 7, 11), 7)):
+        A = random_node_block(kern["NodeBlock"], torch, np, rng, dims, k,
+                              dev)
+
+        def vec(lo, hi):
+            v = torch.as_tensor(rng.uniform(lo, hi, A.n),
+                                dtype=torch.float32)
+            return A.pad(v).to(dev)
+        xh, bh, dh = vec(-1, 1), vec(-1, 1), vec(0.5, 1.0)
+        runs = [("spmv", {}), ("residual", dict(bh=bh))]
+        for roots in (1, 10, 33):
+            taus = tuple(float(np.float32(t)) for t in
+                         rng.uniform(0.5, 1.5, roots))
+            for res in (False, True):
+                runs.append(("chain", dict(bh=bh, dinvh=dh, inv_taus=taus,
+                                           emit_residual=res)))
+        for mode, kw in runs:
+            got = vstencil(A, mode, xh, **kw)
+            ref = plain(A, mode, xh, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                _, rel = rel_err(got, ref)
+                raise RuntimeError(f"vstencil {mode} {dims} k={k} "
+                                   f"{len(kw.get('inv_taus', ()))} roots: "
+                                   f"not bit-equal (rel err {rel:.3e})")
+            cases += 1
+    log("ragged", vstencil_cases=cases, bit_equal=True)
+    return cases
+
+
+def elasticity_kernels(e, A_fine, kern, torch, device_profile, vec):
+    """The node-block kernel's three modes at the finest elasticity
+    level's own shapes against vstencil_plain, each beside the plain ELL
+    product (or chain) of the same level as its library call."""
+    from saamge_tpu_torch.ops.sparse import ELL
+    vstencil, plain = kern["vstencil"], kern["vstencil_plain"]
+    lv = e.levels[0]
+    E = lv.A
+    dev = E.vals.device
+    ell = ELL.from_csr(A_fine, torch.float32).to(dev)
+    replaces = "sparse.py (ELL, left to XLA; no Pallas)"
+    x, b = vec(E.n), vec(E.n)
+    xh, bh = E.pad(x), E.pad(b)
+    hvec = 3 * (E.nodes + 2 * E.halo)
+    nnz = int(A_fine.count_nonzero())
+    roots = len(lv.inv_taus)
+
+    def ell_chain():
+        y = x
+        for tau in lv.roots:
+            y = y + (lv.dinv * (b - ell.matvec(y))) / tau
+        return y, b - ell.matvec(y)
+
+    chain = dict(bh=bh, dinvh=lv.dinvh, inv_taus=lv.inv_taus,
+                 emit_residual=True)
+    recs = run_kernels([
+        ("vstencil_chain", 1e-6, "vstencil.cu", replaces,
+         lambda: vstencil(E, "chain", xh, **chain),
+         lambda: plain(E, "chain", xh, **chain),
+         (nbytes(E.vals) + 5 * hvec * 4, 2 * nnz * (roots + 1)), ell_chain),
+        ("vstencil_spmv", 1e-6, "vstencil.cu", replaces,
+         lambda: vstencil(E, "spmv", xh), lambda: plain(E, "spmv", xh),
+         (nbytes(E.vals) + 2 * hvec * 4, 2 * nnz),
+         lambda: ell.matvec(x)),
+        ("vstencil_residual", 1e-6, "vstencil.cu", replaces,
+         lambda: vstencil(E, "residual", xh, bh),
+         lambda: plain(E, "residual", xh, bh),
+         (nbytes(E.vals) + 3 * hvec * 4, 2 * nnz),
+         lambda: b - ell.matvec(x)),
+    ], torch, device_profile)
+    for rec in recs:
+        rec["case"] = (f"f32 3x3 node blocks, 27 offsets, {E.nodes} nodes, "
+                       f"{roots} roots + residual, beside the ELL level")
+    return recs
 
 
 def check_launches(path, launches, must, never):
@@ -1970,6 +2097,8 @@ def main() -> int:
     ap.add_argument("--general-n", type=int, default=64,
                     help="general-path mesh size (development only; "
                          "default 64)")
+    ap.add_argument("--elasticity-n", type=int, default=40,
+                    help="elasticity mesh size (default 40, the cell's)")
     ap.add_argument("--scale-n", type=int, default=128,
                     help="scale-path mesh size (default 128; the driver's "
                          "own default is 200)")
@@ -2008,7 +2137,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chip_profile import device_profile
     from saamge_tpu_torch import (compile_hierarchy, compile_structured,
-                                  flagship_problem, general_problem,
+                                  elasticity_problem, flagship_problem,
+                                  general_problem,
                                   pcg_solve, struct_pcg_solve,
                                   struct_vcycle_apply, vcycle_apply)
     from saamge_tpu_torch.ops import _build
@@ -2031,7 +2161,8 @@ def main() -> int:
                                                 mid_tile_plan, pack_tiles,
                                                 tile_plan)
     from saamge_tpu_torch.ops.smoother import smoother_h, smoother_plain
-    from saamge_tpu_torch.ops.sparse import DIA
+    from saamge_tpu_torch.ops.sparse import DIA, NodeBlock
+    from saamge_tpu_torch.ops.vstencil import vstencil, vstencil_plain
     from saamge_tpu_torch.ops.stencil import stencil_h, stencil_plain_h
     from saamge_tpu_torch.ops.wavefront import (wavefront_plain,
                                                 wavefront_smooth)
@@ -2061,7 +2192,8 @@ def main() -> int:
                 mfree_chain_plain=mfree_chain_plain,
                 MatrixFreeQ1=MatrixFreeQ1, card_limits=card_limits,
                 mid_tile_plan=mid_tile_plan, tile_plan=tile_plan,
-                mfree_plan=mfree_plan)
+                mfree_plan=mfree_plan, vstencil=vstencil,
+                vstencil_plain=vstencil_plain, NodeBlock=NodeBlock)
 
     def s_pcg(h, b, tol, graph=True):
         return struct_pcg_solve(h, b, rel_tol=tol, graph=graph)
@@ -2095,7 +2227,8 @@ def main() -> int:
               ("mfree.cu", "mfree_chain_kernel"),
               ("contract.cu", "contract_R_kernel"),
               ("contract.cu", "contract_P_kernel"),
-              ("blockrow.cu", "blockrow_kernel"))}
+              ("blockrow.cu", "blockrow_kernel"),
+              ("vstencil.cu", "vstencil_chain_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
     if args.cards > 1:
@@ -2515,10 +2648,6 @@ def main() -> int:
         gcompile_s = time.perf_counter() - t0
         del ml
 
-        def fmt(M):
-            nb = getattr(getattr(M, "base", M), "nbuckets", None)
-            return type(M).__name__ + (f"[{nb} buckets]" if nb else "")
-
         formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
         log("general", n=args.general_n, ndof=g_cpu.n, coarse_dims=gdims,
             device_setup=device_setup, setup_s=f"{gsetup_s:.1f}",
@@ -2551,7 +2680,7 @@ def main() -> int:
                             vcycle_apply, g_pcg, device_profile, exact=False)
             check_launches("general", gen["launches"],
                            ("smoother", "stencil", "blockrow"),
-                           structured_only)
+                           structured_only + VSTENCIL)
             check_launches("general blockrow", gen["modes"]["blockrow"],
                            tuple(BLOCKROW_MODES), ())
             # every block-row product of the card's V-cycles is one launch
@@ -2592,6 +2721,68 @@ def main() -> int:
                     pcg_iters=[it6, it8])
             results["general"] = gen
         del g, g_cpu
+        leave_card(torch)
+
+    # 7b. elasticity ----------------------------------------------------
+    if "elasticity" in paths:
+        (ml, A_el, _), esetup_s = timed_setup(
+            "elasticity", lambda: elasticity_problem(
+                n=args.elasticity_n, device_setup=device_setup, device=dev),
+            dev, torch)
+        edims = [int(lv.tg_data.Ac.shape[0]) for lv in ml.levels]
+        before = dict(TIMERS.counters)
+        t0 = time.perf_counter()
+        e_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
+        ecompile_s = time.perf_counter() - t0
+        counted = (TIMERS.counters.get("vstencil.bytes", 0)
+                   - before.get("vstencil.bytes", 0))
+        del ml
+        log("elasticity", n=args.elasticity_n, ndof=e_cpu.n,
+            coarse_dims=edims, device_setup=device_setup,
+            setup_s=f"{esetup_s:.1f}", compile_s=f"{ecompile_s:.1f}",
+            formats=[(fmt(lv.A), fmt(lv.P), lv.blocked)
+                     for lv in e_cpu.levels],
+            roots=[len(lv.roots) for lv in e_cpu.levels],
+            fine_nnz=int(A_el.count_nonzero()))
+        e = copy.deepcopy(e_cpu).to(dev)
+        lv0 = e.levels[0]
+        E0 = lv0.A
+        if not (lv0.blocked and isinstance(E0, NodeBlock)
+                and len(E0.offsets) == 27 and len(lv0.inv_taus) == 10):
+            raise RuntimeError(f"elasticity fine level: {fmt(E0)}, "
+                               f"blocked={lv0.blocked}, roots "
+                               f"{lv0.inv_taus}")
+        log("elasticity", vstencil_bytes=counted,
+            node_block_bytes=nbytes(E0.vals), halo_nodes=E0.halo)
+        if counted != nbytes(E0.vals):
+            raise RuntimeError(f"vstencil.bytes {counted} != the node-block "
+                               f"values' {nbytes(E0.vals)} bytes")
+        vstencil_ragged(dev, torch, np, kern)
+        records += elasticity_kernels(e, A_el, kern, torch, device_profile,
+                                      vec)
+        if full:
+            b_el = np.random.default_rng(2).standard_normal(e.n)
+            el = run_slice("elasticity", e, e_cpu, b_el, A_el, torch, np,
+                           vcycle_apply, g_pcg, device_profile, exact=False,
+                           cpu_pcg=False)
+            check_launches("elasticity", el["launches"],
+                           ("vstencil_chain", "vstencil_spmv", "blockrow"),
+                           structured_only + ("smoother", "stencil"))
+            bd = torch.as_tensor(b_el, dtype=torch.float32, device=dev)
+            before = dict(TIMERS.counters)
+            _, it_e, _ = g_pcg(e, bd, 1e-6, graph=False)
+            routes = {k: TIMERS.counters.get(k, 0) - before.get(k, 0)
+                      for k in ("vstencil.kernel.chain", "vstencil.plain",
+                                "smoother.kernel", "blockrow.plain")}
+            log("elasticity", routes=routes, pcg_iters=it_e)
+            if routes["vstencil.plain"] or routes["smoother.kernel"] \
+                    or routes["blockrow.plain"] \
+                    or routes["vstencil.kernel.chain"] != 2 * (it_e + 1):
+                raise RuntimeError(f"elasticity routes {routes}, {it_e} "
+                                   "iterations: two node-block chains a "
+                                   "V-cycle and no plain route expected")
+            results["elasticity"] = el
+        del e, e_cpu, E0, lv0
         leave_card(torch)
 
     # 8. twolevel -------------------------------------------------------
@@ -2699,6 +2890,7 @@ def main() -> int:
                "midmv": "capacity",
                "contract_R": "contract", "contract_P": "contract",
                "smoother": "general", "stencil_slab": "sharded",
+               **dict.fromkeys(VSTENCIL, "elasticity"),
                **dict.fromkeys((p[0] for p in BLOCKROW_PRODUCTS), "general"),
                "window_R_slab": "sharded", "window_P_slab": "sharded"}
     return finish(records, {rec["name"]: results.get(

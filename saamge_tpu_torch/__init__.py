@@ -16,8 +16,8 @@ batched on the card, or on the CPU when asked.  The JAX package
 and nothing of JAX."""
 
 from saamge_tpu_torch._device import pin_fp32_precision
-from saamge_tpu_torch.api import (SpectralAMGSolver, entry, flagship_problem,
-                                  general_problem)
+from saamge_tpu_torch.api import (SpectralAMGSolver, elasticity_problem,
+                                  entry, flagship_problem, general_problem)
 from saamge_tpu_torch.solve.compiled import (CompiledHierarchy,
                                              compile_hierarchy,
                                              compile_two_level, pcg_solve,
@@ -32,6 +32,7 @@ pin_fp32_precision()
 
 __all__ = ["BrickGeometry", "CompiledHierarchy", "SpectralAMGSolver",
            "StructuredHierarchy", "compile_hierarchy", "compile_structured",
-           "compile_two_level", "entry", "flagship_problem",
+           "compile_two_level", "elasticity_problem", "entry",
+           "flagship_problem",
            "general_problem", "pcg_solve", "pin_fp32_precision",
            "struct_pcg_solve", "struct_vcycle_apply", "vcycle_apply"]

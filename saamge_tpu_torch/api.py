@@ -13,6 +13,8 @@ and the problems the port's device paths solve:
   - ``general_problem``: the hexkway problem of
     scripts/run_general_bench.py (generic k-way agglomeration) for
     solve/compiled.py ``compile_hierarchy``;
+  - ``elasticity_problem``: 3D linear elasticity (mltest --elasticity)
+    on the same general path, a vector field of 3 dofs a node;
   - ``entry``: the twin of __graft_entry__.entry(), one general-path
     V-cycle on the card.
 
@@ -149,7 +151,7 @@ class SpectralAMGSolver:
                 num_nodes=(mesh.num_dofs(order) if vdim == 1
                            else mesh.num_dofs(order) * vdim // vdim),
                 coarse_part_override=coarse_part_override,
-                rap_override=rap_override)
+                rap_override=rap_override, vdim=vdim)
         if opts.double_cycle:
             from saamge_tpu_torch.solve.double_cycle import DoubleCycle
             self.precond = DoubleCycle(A, self.ml)
@@ -330,6 +332,41 @@ def general_problem(n: int = 64, contrast: float = 2.0, seed: int = 7,
         device_setup=device_setup)
     s = SpectralAMGSolver(A, mesh, em, opts, ess_attr_marker=ess,
                           setup_device=device)
+    return s.ml, A, np.asarray(b, np.float64)
+
+
+def elasticity_problem(n: int = 40, contrast: float = 2.0, seed: int = 7,
+                       first_elems_per_agg: int = 128,
+                       elems_per_agg: int = 64, levels: int = 3,
+                       theta: float = 1e-4, clamp_attrs=(1,),
+                       device_setup: bool = False, device="cuda"):
+    """3D linear elasticity as mltest.cpp --elasticity sets it up
+    (mltest.cpp:560-620): lam div u div v + 2 mu eps(u):eps(v) on
+    ``hex_mesh(n)``, both Lame parameters c_e = 10^U(-contrast,
+    contrast) from ``seed`` (the draw of ``general_problem``), all three
+    components clamped on the boundary attributes ``clamp_attrs`` (1:
+    the x = 0 face), three dofs a node numbered node-major.  The setup
+    is ``general_problem``'s generic k-way path with
+    ``first_elems_per_agg`` elements an agglomerate at the first
+    coarsening and ``elems_per_agg`` after it; ``vdim=3`` takes the
+    rigid-body modes into the finest coarse space.  ``device_setup``
+    solves the local eigenproblems on ``device`` (a card, or
+    ``"cpu"``).  Returns ``(ml, A, b)``; b is zero (the caller brings
+    the load)."""
+    mesh = hex_mesh(n)
+    rng = np.random.default_rng(seed)
+    coef = 10.0 ** rng.uniform(-contrast, contrast, mesh.num_elements)
+    ess = np.zeros(mesh.max_bdr_attr(), dtype=np.int64)
+    ess[np.asarray(clamp_attrs, dtype=np.int64) - 1] = 1
+    A, b, em, _, _ = assemble.build_discrete_problem(
+        mesh, coef=coef, ess_attr_marker=ess, elasticity=True)
+    opts = SolverOptions(
+        num_levels=levels, correct_nulspace=False, first_theta=theta,
+        theta=theta, nu_relax=[3, 1] if levels >= 3 else 3,
+        first_elems_per_agg=first_elems_per_agg,
+        elems_per_agg=elems_per_agg, device_setup=device_setup)
+    s = SpectralAMGSolver(A, mesh, em, opts, vdim=mesh.dim,
+                          ess_attr_marker=ess, setup_device=device)
     return s.ml, A, np.asarray(b, np.float64)
 
 

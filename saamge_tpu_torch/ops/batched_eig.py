@@ -22,8 +22,16 @@ solver on both sides: sparse AEs and AEs above ``device_max_n`` go to
 the host, and so do small buckets (``len * nmax^3 < 2e10``); f32
 buckets with ``nmax >= 256`` take the Chebyshev filter
 (ops/filtered_eig.py) with an f64 Rayleigh-Ritz on the host, the rest a
-batched ``torch.linalg.eigh`` on the device.  A bucket is solved in
-chunks of ``chunk`` AEs (the JAX function stacks it whole in f64 on the
+batched ``torch.linalg.eigh`` on the device.  A filtered AE is re-solved
+exactly on the host where the filter did not converge (the JAX
+function's guard) and, beyond the JAX function, where a pair that the
+theta cut can take keeps an f64 Rayleigh-Ritz residual above
+``RR_RESIDUAL_TOL`` x theta: a pair not resolved well inside the cut
+mixes directions across it, and the MIS SVD of the tentative
+prolongator keeps that noise as coarse dofs (3D elasticity, whose AEs
+hold six near-zero rigid-body modes, at n=48: levels of 41 % and 11 %
+of the fine dofs without the guard, 26 % and 5.5 % with it).  A bucket
+is solved in chunks of ``chunk`` AEs (the JAX function stacks it whole in f64 on the
 host, ~17 GB an array for 1,953 AEs of the 1024 bucket); the filter's
 start rows come from one generator per bucket, drawn chunk after chunk,
 so that each AE gets the rows of the whole-bucket draw.
@@ -46,6 +54,13 @@ from saamge_tpu_torch.utils.logging import TIMERS
 
 __all__ = ["batched_spectral_cut", "batched_weighted_l1",
            "bucket_spectral_cut", "padded_eigh_stack"]
+
+# largest f64 Rayleigh-Ritz residual ||M z - lam z|| (z of unit norm) of a
+# filtered pair that the theta cut can take, as a share of theta; above
+# it the AE is re-solved exactly.  Converged filtered pairs of a
+# separated spectrum sit at ~2e-4 theta (tests/test_torch_batched_eig.py
+# ``_gap_mats``); 3D elasticity AEs at 2e-2 theta and above.
+RR_RESIDUAL_TOL = 1e-3
 
 
 def _bucket_size(n: int, multiple: int) -> int:
@@ -121,6 +136,15 @@ def _lowest_pairs(Mk: np.ndarray, k: int, theta: float):
     return lam, Z
 
 
+def _cut_residual(Mk: np.ndarray, lam: np.ndarray, V: np.ndarray,
+                  theta: float) -> float:
+    """The largest residual ||Mk z - lam z|| over the unit-norm pairs
+    that a theta cut of ``lam`` can take, and the one after them."""
+    m = min(int(np.searchsorted(lam, theta, side="right")) + 1, len(lam))
+    Z = V[:, :m] / np.linalg.norm(V[:, :m], axis=0)
+    return float(np.linalg.norm(Mk @ Z - Z * lam[:m], axis=0).max())
+
+
 def _solve_chunk(M: np.ndarray, sizes, theta, dtype, device, rng, routes):
     """The device solve of one chunk of a bucket (M: the host f64 scaled
     stack).  Returns, per AE, the computed eigenvalues ascending and
@@ -142,18 +166,12 @@ def _solve_chunk(M: np.ndarray, sizes, theta, dtype, device, rng, routes):
         # filtered subspace failed to converge (clustered / borderline
         # spectrum, a failed factorization): exact host solves for
         # these, on a thread pool (LAPACK releases the GIL)
-        flagged = [k for k in range(B)
+        flagged = {k for k in range(B)
                    if not (np.isfinite(f_res[k]).all()
-                           and f_res[k].max() <= FILTER_RESIDUAL_TOL)]
-        workers = min(os.cpu_count() or 1, 16)
-        with TIMERS.phase("setup.local_eigensolves.resolve"), \
-                cf.ThreadPoolExecutor(workers) as ex:
-            exact = dict(zip(flagged, ex.map(
-                lambda k: _lowest_pairs(M[k, :sizes[k], :sizes[k]], mk,
-                                        theta), flagged)))
+                           and f_res[k].max() <= FILTER_RESIDUAL_TOL)}
+        pairs = {}
         for k in range(B):
-            if k in exact:
-                out.append(exact[k])
+            if k in flagged:
                 continue
             n = int(sizes[k])
             Mk = M[k, :n, :n]
@@ -165,7 +183,19 @@ def _solve_chunk(M: np.ndarray, sizes, theta, dtype, device, rng, routes):
             # trace-scaled ridge matches filtered_eig's internal RR
             G = G + 1e-12 * np.trace(G) / G.shape[0] * np.eye(G.shape[0])
             lam, Z = sla.eigh(0.5 * (W + W.T), 0.5 * (G + G.T))
-            out.append((lam, Xk @ Z))
+            pairs[k] = (lam, Xk @ Z)
+            # pairs that the theta cut can take (and the next one),
+            # resolved too loosely for the cut: exact host solves too
+            if _cut_residual(Mk, *pairs[k], theta) > RR_RESIDUAL_TOL * theta:
+                flagged.add(k)
+        flagged = sorted(flagged)
+        workers = min(os.cpu_count() or 1, 16)
+        with TIMERS.phase("setup.local_eigensolves.resolve"), \
+                cf.ThreadPoolExecutor(workers) as ex:
+            pairs.update(zip(flagged, ex.map(
+                lambda k: _lowest_pairs(M[k, :sizes[k], :sizes[k]], mk,
+                                        theta), flagged)))
+        out = [pairs[k] for k in range(B)]
         count_route(routes, "filter", B)
         count_route(routes, "host_resolve", len(flagged))
     else:

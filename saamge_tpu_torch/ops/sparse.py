@@ -8,6 +8,13 @@ Port of saamge_tpu/ops/sparse.py:
     side of the ``n`` entries, so every tap is in bounds.  The f32
     stencil passes are the hand-written kernels of ops/stencil.py and
     ops/smoother.py; ``dia_spmv`` is the plain product (any dtype).
+  - NodeBlock: a stencil of dense ``bs x bs`` node blocks, for a vector
+    field numbered node-major (dof = bs node + component, 3D
+    elasticity): ``vals[k, a, b, p] = A[bs p + a, bs (p + offsets[k])
+    + b]``, at most 27 node offsets, no column index.  Its vectors are
+    haloed by ``halo`` nodes (``bs halo`` zeros) on each side.  The
+    products are ops/vstencil.py (the hand-written kernel of
+    csrc/vstencil.cu on the card).
   - ELL: rows padded to a common nnz/row; the product is a gather and a
     row sum.
   - Banded: dense band blocks of ``G`` rows applied to strided windows
@@ -108,6 +115,74 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     return dia_apply_h(A, torch.nn.functional.pad(x, (A.halo, A.halo)))
 
 
+class NodeBlock(torch.nn.Module):
+    """Node-block stencil (see the module docstring): the buffer
+    ``vals`` (K, bs, bs, N) over N nodes, the node ``offsets`` in
+    increasing order, ``n = bs N`` rows."""
+
+    BS = 3              # dofs a node: 3D elasticity's displacement
+    MAX_OFFSETS = 27    # the node stencil of a hexahedral grid
+
+    def __init__(self, vals: torch.Tensor, offsets):
+        super().__init__()
+        self.register_buffer("vals", vals)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.bs = int(vals.shape[1])
+        self.nodes = int(vals.shape[-1])
+        self.n = self.bs * self.nodes
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def halo(self) -> int:
+        """Halo nodes on each side of a haloed vector."""
+        return max(max(abs(o) for o in self.offsets), 1)
+
+    @staticmethod
+    def try_from_csr(A: sp.spmatrix,
+                     dtype=torch.float32) -> Optional["NodeBlock"]:
+        """None if A is not square, its rows are not whole nodes of
+        ``BS`` dofs, or its node blocks lie on more than ``MAX_OFFSETS``
+        node offsets."""
+        bs = NodeBlock.BS
+        n, m = A.shape
+        if n != m or n == 0 or n % bs:
+            return None
+        A = A.tocsr()
+        A.sum_duplicates()
+        coo = A.tocoo()
+        p, q = coo.row // bs, coo.col // bs
+        offs = np.unique(q - p)
+        if len(offs) > NodeBlock.MAX_OFFSETS:
+            return None
+        vals = np.zeros((len(offs), bs, bs, n // bs))
+        vals[np.searchsorted(offs, q - p), coo.row % bs, coo.col % bs,
+             p] = coo.data
+        return NodeBlock(torch.as_tensor(vals).to(dtype), offs)
+
+    @staticmethod
+    def from_csr(A: sp.spmatrix, dtype=torch.float32) -> "NodeBlock":
+        """Raises where ``try_from_csr`` gives None."""
+        nb = NodeBlock.try_from_csr(A, dtype)
+        if nb is None:
+            raise ValueError(f"NodeBlock needs a square operator of whole "
+                             f"{NodeBlock.BS}-dof nodes on at most "
+                             f"{NodeBlock.MAX_OFFSETS} node offsets, got "
+                             f"{A.shape}")
+        return nb
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        """flat (n,) -> haloed (n + 2 bs halo,) f32."""
+        h = self.bs * self.halo
+        return torch.nn.functional.pad(x.to(torch.float32), (h, h))
+
+    def unpad(self, xh: torch.Tensor) -> torch.Tensor:
+        h = self.bs * self.halo
+        return xh[h:h + self.n]
+
+
 class ELL(torch.nn.Module):
     """Padded ELLPACK: cols (n, k) int64, vals (n, k).  Padding entries
     point at column 0 with value 0."""
@@ -194,7 +269,7 @@ def banded_spmv(A: Banded, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[:n]
 
 
-DeviceMatrix = Union[DIA, ELL, Banded]
+DeviceMatrix = Union[DIA, NodeBlock, ELL, Banded]
 
 
 def device_matrix(A: sp.spmatrix, dtype=torch.float32,

@@ -111,6 +111,9 @@ class MLData:
     coords: Optional[np.ndarray] = None
     sdim: int = 0
     num_nodes: int = 0
+    # dofs a node of the finest level (3 for 3D elasticity), numbered
+    # node-major: dof = vdim * node + component
+    vdim: int = 1
 
     @property
     def finest(self) -> Level:
@@ -125,12 +128,13 @@ def ml_produce_data(A: sp.csr_matrix, rels: AggPartRels, elem_data,
                     mlp: MultilevelParameters,
                     coords: Optional[np.ndarray] = None,
                     sdim: int = 0, num_nodes: int = 0,
-                    coarse_part_override=None, rap_override=None) -> MLData:
+                    coarse_part_override=None, rap_override=None,
+                    vdim: int = 1) -> MLData:
     """ml_produce_data (ml.cpp:379): finest coarsening then recursion.
 
     ``rap_override(A, tg, rels, level)``: optional Galerkin-product
     replacement (device structured RAP); None return = host product."""
-    ml = MLData(coords=coords, sdim=sdim, num_nodes=num_nodes)
+    ml = MLData(coords=coords, sdim=sdim, num_nodes=num_nodes, vdim=vdim)
     from saamge_tpu_torch.utils.logging import agg_print_stats
     agg_print_stats(rels, level=3)
     sa_print(5, "Coarsening: 0 -> 1 ...")

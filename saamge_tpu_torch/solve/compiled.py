@@ -12,9 +12,17 @@ tentative P/R are block-row when the interpolation is not smoothed;
 otherwise DIA (<= 40 diagonals) > banded > ELL by structure, and ELL for
 smoothed P/R.
 
+The finest level of a vector-valued setup (``MLData.vdim`` 3, 3D
+elasticity) is stored f32 in the node-block stencil format
+(ops/sparse.NodeBlock) when its 3 x 3 node blocks lie on at most 27 node
+offsets; every scalar level keeps the choice above.
+
 Smoothing.  Every f32 DIA level without a second root chain smooths
 through the fused smoother kernel (ops/smoother.py): all roots in one
-launch, the pre-smoothing launch emitting the residual too.  This
+launch, the pre-smoothing launch emitting the residual too.  A
+node-block level without a second root chain does the same through the
+node-block chain (ops/vstencil.py, csrc/vstencil.cu), and its products
+are that kernel's spmv and residual passes.  This
 replaces both JAX branches, the VMEM-resident fused smoother
 (``fits_vmem``) and the blocked stencil passes above that budget.  On a
 block-row level each root and the residual are one pass of the
@@ -41,8 +49,10 @@ import torch
 from saamge_tpu_torch.ops.blockrow import (BlockRow, TransposedBlockRow,
                                            blockrow)
 from saamge_tpu_torch.ops.smoother import inv_taus_f32, smoother_h
-from saamge_tpu_torch.ops.sparse import DIA, ELL, device_matrix, dia_spmv
+from saamge_tpu_torch.ops.sparse import (DIA, ELL, NodeBlock, device_matrix,
+                                         dia_spmv)
 from saamge_tpu_torch.ops.stencil import stencil_h
+from saamge_tpu_torch.ops.vstencil import vstencil
 from saamge_tpu_torch.solve.device_pcg import graphed, pcg
 from saamge_tpu_torch.utils.logging import TIMERS
 
@@ -59,8 +69,9 @@ class CompiledLevel(torch.nn.Module):
     scaling ``dinv`` and roots.  A DIA operator keeps its values in the
     buffer ``A_vals`` (``A`` rebuilds the view); the other formats are
     submodules.  ``fused`` marks an f32 DIA level smoothed by the fused
-    kernel, with ``dinvh`` its haloed scaling and ``inv_taus`` the f32
-    1/tau of its roots."""
+    kernel, ``blocked`` an f32 node-block level smoothed by the
+    node-block chain; either has ``dinvh``, its haloed scaling, and
+    ``inv_taus``, the f32 1/tau of its roots."""
 
     def __init__(self, A, P, R, dinv: torch.Tensor, roots, roots2=(),
                  weightfirst: float = 1.0):
@@ -80,11 +91,15 @@ class CompiledLevel(torch.nn.Module):
         self.roots = _cast_floats(roots, dtype)
         self.roots2 = _cast_floats(roots2, dtype)
         self.weightfirst = _cast_floats([weightfirst], dtype)[0]
-        self.fused = (isinstance(A, DIA) and dtype == torch.float32
-                      and A.vals.dtype == torch.float32 and not self.roots2)
-        self.inv_taus = inv_taus_f32(roots) if self.fused else None
+        chained = (isinstance(A, (DIA, NodeBlock)) and not self.roots2
+                   and dtype == torch.float32
+                   and A.vals.dtype == torch.float32)
+        self.fused = chained and isinstance(A, DIA)
+        self.blocked = chained and isinstance(A, NodeBlock)
+        one_launch = self.fused or self.blocked
+        self.inv_taus = inv_taus_f32(roots) if one_launch else None
         self.register_buffer(
-            "dinvh", A.pad(dinv) if self.fused else None)
+            "dinvh", A.pad(dinv) if one_launch else None)
 
     @property
     def A(self):
@@ -94,8 +109,11 @@ class CompiledLevel(torch.nn.Module):
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x: the stencil kernel for f32 DIA values, plain torch
-        for f64 DIA, the format's own product otherwise."""
+        for f64 DIA, the node-block pass for a node-block operator, the
+        format's own product otherwise."""
         A = self.A
+        if isinstance(A, NodeBlock):
+            return A.unpad(vstencil(A, "spmv", A.pad(x)))
         if not isinstance(A, DIA):
             return A.matvec(x)
         if A.vals.dtype == torch.float32 and x.dtype == torch.float32:
@@ -116,6 +134,23 @@ class CompiledLevel(torch.nn.Module):
         if isinstance(self.A_mod, BlockRow):
             return blockrow(self.A_mod, x, "root", b, self.dinv, tau)
         return x + (self.dinv * (b - self.matvec(x))) / tau
+
+    def chain_h(self, bh: torch.Tensor, xh: torch.Tensor,
+                emit_residual: bool = False):
+        """All roots (and with ``emit_residual`` the trailing residual)
+        over haloed vectors in one launch, on a ``fused`` or ``blocked``
+        level; returns xh' or (xh', resh)."""
+        if self.fused:
+            return smoother_h(self.A, self.inv_taus, bh, self.dinvh, xh,
+                              emit_residual)
+        return vstencil(self.A_mod, "chain", xh, bh, self.dinvh,
+                        self.inv_taus, emit_residual)
+
+    def residual_h(self, xh: torch.Tensor, bh: torch.Tensor):
+        """b - A x over haloed vectors on a DIA or node-block level."""
+        if isinstance(self.A_mod, NodeBlock):
+            return vstencil(self.A_mod, "residual", xh, bh)
+        return stencil_h("residual", self.A, xh, bh)
 
 
 class CompiledHierarchy(torch.nn.Module):
@@ -167,6 +202,13 @@ def compile_hierarchy(ml, dtype=torch.float32, prefer_dia: bool = True,
         for i, level in enumerate(ml.levels):
             tg = level.tg_data
             A_dev = P_dev = R_dev = None
+            if i == 0 and ml.vdim == NodeBlock.BS \
+                    and dtype == torch.float32:
+                A_dev = NodeBlock.try_from_csr(level.A, dtype)
+                if A_dev is not None:
+                    TIMERS.count("vstencil.bytes",
+                                 A_dev.vals.numel()
+                                 * A_dev.vals.element_size())
             if use_block_row and i > 0:
                 finer = ml.levels[i - 1].tg_data
                 offs = getattr(finer.interp_data, "mis_coarsedofoffsets",
@@ -208,10 +250,9 @@ def smooth(lv: CompiledLevel, b: torch.Tensor,
     """smpr_sym_poly / smpr_compute_poly: x += D^{-1} (b - A x) / tau per
     root; the invx family mixes two root chains with weightfirst
     (smpr.cpp:213-234)."""
-    if lv.fused:
+    if lv.fused or lv.blocked:
         A = lv.A
-        return A.unpad(smoother_h(A, lv.inv_taus, A.pad(b), lv.dinvh,
-                                  A.pad(x)))
+        return A.unpad(lv.chain_h(A.pad(b), A.pad(x)))
 
     if not lv.roots2:
         for tau in lv.roots:
@@ -244,19 +285,18 @@ def vcycle(h: CompiledHierarchy, b: torch.Tensor, x: torch.Tensor,
             return vcycle(h, resc, xc, level + 1, mu)
         return coarse_solve(h, resc)
 
-    if lv.fused:
+    if lv.fused or lv.blocked:
         # the iterate stays haloed across the smoothing launches; the
         # pre-smoothing launch emits the first residual
         A = lv.A
         bh = A.pad(b)
-        xh, resh = smoother_h(A, lv.inv_taus, bh, lv.dinvh, A.pad(x),
-                              emit_residual=True)
+        xh, resh = lv.chain_h(bh, A.pad(x), emit_residual=True)
         for cycle in range(mu):
             if cycle:
-                resh = stencil_h("residual", A, xh, bh)
+                resh = lv.residual_h(xh, bh)
             xc = coarse_correct(lv.R.matvec(A.unpad(resh)))
             xh = xh + A.pad(lv.P.matvec(xc))
-        return A.unpad(smoother_h(A, lv.inv_taus, bh, lv.dinvh, xh))
+        return A.unpad(lv.chain_h(bh, xh))
 
     x = smooth(lv, b, x)
     for _ in range(mu):

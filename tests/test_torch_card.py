@@ -62,3 +62,40 @@ def test_midmv_kernel_repeats_bit_equal(card, bricks, bs):
         assert torch.equal(y1, y2), mode
         err = float((y1.cpu() - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), (mode, err)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dims,k", [((13, 17, 19), 27), ((5, 7, 11), 7)])
+def test_vstencil_kernel_equals_plain(card, dims, k):
+    """csrc/vstencil.cu in each mode (the chain with 10 and with 33 roots,
+    two launches, and its residual) gives the bits of vstencil_plain on
+    the CPU: the same products and sums in the same order, each rounded
+    apart."""
+    from saamge_tpu_torch.ops.sparse import NodeBlock
+    from saamge_tpu_torch.ops.vstencil import vstencil, vstencil_plain
+    rng = np.random.default_rng(3)
+    X, Y, Z = dims
+    offs = sorted({dx * Y * Z + dy * Z + dz for dx in (-1, 0, 1)
+                   for dy in (-1, 0, 1) for dz in (-1, 0, 1)})
+    offs = sorted(set(offs[:k - 1]) | {0})
+    N = X * Y * Z
+    vals = rng.uniform(-0.01, 0.01, (len(offs), 3, 3, N))
+    vals[offs.index(0)] += np.eye(3)[:, :, None]
+    A = NodeBlock(torch.as_tensor(vals, dtype=torch.float32), offs)
+    x, b = (A.pad(torch.as_tensor(rng.uniform(-1, 1, A.n),
+                                  dtype=torch.float32)) for _ in range(2))
+    d = A.pad(torch.as_tensor(rng.uniform(0.5, 1.0, A.n),
+                              dtype=torch.float32))
+    Ac = NodeBlock(A.vals.to(card), offs)
+    for mode, kw in [("spmv", {}), ("residual", dict(bh=b))] + [
+            ("chain", dict(bh=b, dinvh=d, inv_taus=tuple(
+                float(np.float32(t)) for t in rng.uniform(0.5, 1.5, r)),
+                emit_residual=True)) for r in (10, 33)]:
+        ref = vstencil_plain(A, mode, x, **kw)
+        got = vstencil(Ac, mode, x.to(card), **{
+            key: (v.to(card) if torch.is_tensor(v) else v)
+            for key, v in kw.items()})
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r), mode
