@@ -100,12 +100,18 @@ Phases (one line each; any failure raises and exits non-zero):
                  the V-cycle (R0, the level-1 root and residual, R1, P1,
                  P0; bit for bit equal to blockrow_plain and to its own
                  repeat, beside the CSR product of the same matrix),
+                 the coarsest product (csrc/symv.cu, 367 dofs) bit for
+                 bit against symv_plain, beside torch's product with the
+                 dense inverse and the triangular solve pair it replaced,
                  then the slice; its PCG launches the smoother, the
-                 stencil and the block-row kernel in its four modes and
-                 no structured-only kernel, and its V-cycles take no
-                 plain block-row route (counters ``blockrow.kernel`` /
-                 ``blockrow.plain``); the kernels of one body replay of
-                 the PCG graph, counted from profiler records
+                 stencil, the block-row kernel in its four modes and the
+                 coarsest product and no structured-only kernel, and its
+                 V-cycles take no plain block-row or coarsest route
+                 (counters ``blockrow.kernel`` / ``blockrow.plain``,
+                 ``symv.kernel`` / ``symv.plain``: one product a
+                 V-cycle) and run no triangular solve; the kernels of
+                 one body replay of the PCG graph, counted from profiler
+                 records
   7b. elasticity -- 3D linear elasticity on the general path
                  (``elasticity_problem``: 206,763 dofs at n=40, one face
                  clamped, k-way agglomerates of 128 / 64 elements, the
@@ -117,10 +123,13 @@ Phases (one line each; any failure raises and exits non-zero):
                  plain ELL product or chain of the same level (the
                  record's library times), and bit for bit against it on
                  ragged node grids (27 and 7 offsets, 1 / 10 / 33 roots,
-                 +- residual); then the slice (no CPU PCG); its PCG
-                 launches the node-block chain and pass and the
-                 block-row kernel, and no fused smoother, stencil or
-                 plain node-block route
+                 +- residual); the coarsest product at ~9.5k dofs
+                 (``symv.bytes`` the bytes of its tiles) as in phase 7;
+                 then the slice (no CPU PCG); its PCG launches the
+                 node-block chain and pass, the block-row kernel and one
+                 coarsest product a V-cycle, and no fused smoother,
+                 stencil, triangular solve or plain node-block or
+                 coarsest route
   8. twolevel -- the flagship setup's level 0 alone (a two-level
                  hierarchy: its coarsest level is the flagship's mid
                  level, 18,917 dofs at n=96), compiled on the card in
@@ -802,7 +811,8 @@ KERNEL_OF = {"stencil": "stencil_kernel", "wavefront": "wavefront_kernel",
              "blockrow": "blockrow_kernel",
              "vstencil_chain": "vstencil_chain_kernel",
              "vstencil_spmv": "vstencil_pass_kernel",
-             "vstencil_residual": "vstencil_pass_kernel"}
+             "vstencil_residual": "vstencil_pass_kernel",
+             "symv": "symv_tile_kernel"}
 # the utils/logging.TIMERS counter of each wrapper's launches (the table
 # of ops/__init__.py); a wrapper with modes counts each as
 # ``<wrapper>.kernel.<mode>``, and its launches are their sum
@@ -814,7 +824,8 @@ COUNTER_OF = {"stencil": "stencil.kernel", "wavefront": "wavefront.kernel",
               "contract_P": "contract.kernel.P",
               "vstencil_chain": "vstencil.kernel.chain",
               "vstencil_spmv": "vstencil.kernel.spmv",
-              "vstencil_residual": "vstencil.kernel.residual"}
+              "vstencil_residual": "vstencil.kernel.residual",
+              "symv": "symv.kernel"}
 VSTENCIL = ("vstencil_chain", "vstencil_spmv", "vstencil_residual")
 MODES_OF = {"mfree": ("spmv", "residual", "root"),
             "midmv": ("spmv", "residual", "root"),
@@ -1197,6 +1208,108 @@ def elasticity_kernels(e, A_fine, kern, torch, device_profile, vec):
         rec["case"] = (f"f32 3x3 node blocks, 27 offsets, {E.nodes} nodes, "
                        f"{roots} roots + residual, beside the ELL level")
     return recs
+
+
+def symv_kernels(name, h, Ac, kern, torch, device_profile, vec):
+    """The coarsest product (csrc/symv.cu) at a general hierarchy's own
+    coarsest level against symv_plain (bit for bit, and its repeat),
+    beside two yardsticks the port never calls: torch's product with the
+    dense inverse (the record's library times) and the pair of triangular
+    solves with the Cholesky factor of ``Ac`` that the kernel replaced
+    (``trsv_ms``, ``trsv_device_ms``), both in the tiles' dtype; and the
+    device time of each of its two launches.  The bound counts the
+    n (n + 1) / 2 values of one triangle, x and y; the log gives the
+    bytes the tiles store (the diagonal tiles whole, the last tile row
+    padded) apart."""
+    tiles, n = h.coarse_inv, h.coarse_n
+    dev, T = tiles.device, tiles.shape[-1]
+    nt = kern["symv_tile_rows"](n)
+    I, J = torch.tril_indices(nt, nt, device=dev)
+    D = torch.zeros(nt, nt, T, T, dtype=tiles.dtype, device=dev)
+    D[I, J] = tiles
+    D[J, I] = tiles.mT
+    dense = D.permute(0, 2, 1, 3).reshape(nt * T, nt * T)[:n, :n] \
+        .contiguous()
+    del D
+    L = torch.linalg.cholesky(torch.as_tensor(Ac.toarray()).to(dev)) \
+        .to(tiles.dtype)
+    x = vec(n)
+
+    def run():
+        return kern["symv"](tiles, x)
+
+    def ref():
+        return kern["symv_plain"](tiles, x)
+
+    def trsv():
+        y = torch.linalg.solve_triangular(L, x[:, None], upper=False)
+        return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+
+    rec = run_kernels([
+        (name, 1e-6, "symv.cu", "../solve/compiled.py coarse_solve "
+         "(solve_triangular twice; no Pallas)", run, ref,
+         ((n * (n + 1) // 2 + 2 * n) * tiles.element_size(), 2 * n * n),
+         lambda: dense @ x),
+    ], torch, device_profile)[0]
+    _, vs_trsv = rel_err(run(), trsv())
+    rec.update(wrapper="symv", trsv_ms=median_ms(trsv, torch, draws=5,
+                                                 calls=20),
+               trsv_device_ms=device_ms(trsv, torch, device_profile),
+               vs_trsv_rel_err=vs_trsv,
+               case=f"{tiles.dtype} lower tiles of the coarsest inverse, "
+                    f"{n} dofs, {tiles.shape[0]} tiles of {T}^2")
+    log("kernel", name=f"{name}_yardsticks", trsv_ms=f"{rec['trsv_ms']:.4f}",
+        trsv_device_ms=f"{rec['trsv_device_ms']:.4f}",
+        vs_trsv_rel_err=f"{vs_trsv:.3e}", tiles_bytes=nbytes(tiles))
+    log("kernel", name=f"{name}_stages", calls=20,
+        device_us_records={k: (round(us, 3), c) for k, (us, c) in
+                           stage_us(run, torch, device_profile).items()})
+    bit_checks(name, [(name, run, ref), (f"{name} repeat", run, run)],
+               torch)
+    return [rec]
+
+
+def stage_us(fn, torch, device_profile, calls=20):
+    """(Mean device us per call, records) of each kernel that ``fn``
+    launches, by kernel name; fewer records than ``calls`` means the
+    profiler dropped some, and the mean reads low."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, _, by_name = device_profile(prof, torch)
+    return {k: (t / calls, c) for k, (c, t) in by_name.items()}
+
+
+def coarse_checks(path, h, bd, it_e, vcycle, device_profile, torch,
+                  before):
+    """The coarsest solve of ``path``'s eager 1e-6 PCG of ``it_e``
+    iterations (counters since ``before``): one launched product a
+    V-cycle, no plain route; and no triangular solve among the device
+    kernels of one profiled eager V-cycle."""
+    from torch.profiler import ProfilerActivity, profile
+    from saamge_tpu_torch.utils.logging import TIMERS
+    routes = {k: TIMERS.counters.get(k, 0) - before.get(k, 0)
+              for k in ("symv.kernel", "symv.plain")}
+    vcycle(h, bd, graph=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vcycle(h, bd, graph=False)
+        torch.cuda.synchronize()
+    _, _, by_name = device_profile(prof, torch)
+    trsv = sorted(k for k in by_name if "trsv" in k or "trsm" in k)
+    log(path, symv_routes=routes, symv_products_per_vcycle=1,
+        vcycle_device_kernels=sum(c for c, _ in by_name.values()),
+        triangular_solve_kernels=trsv)
+    if routes["symv.plain"] or routes["symv.kernel"] != it_e + 1 or trsv:
+        raise RuntimeError(f"{path} coarsest solve: routes {routes} in "
+                           f"{it_e} iterations (one product a V-cycle "
+                           f"expected), triangular solves {trsv}")
 
 
 def check_launches(path, launches, must, never):
@@ -2164,6 +2277,7 @@ def main() -> int:
     from saamge_tpu_torch.ops.sparse import DIA, NodeBlock
     from saamge_tpu_torch.ops.vstencil import vstencil, vstencil_plain
     from saamge_tpu_torch.ops.stencil import stencil_h, stencil_plain_h
+    from saamge_tpu_torch.ops.symv import symv, symv_plain, tile_rows
     from saamge_tpu_torch.ops.wavefront import (wavefront_plain,
                                                 wavefront_smooth)
     from saamge_tpu_torch.ops.window import (box_index, slot_ranges,
@@ -2193,7 +2307,8 @@ def main() -> int:
                 MatrixFreeQ1=MatrixFreeQ1, card_limits=card_limits,
                 mid_tile_plan=mid_tile_plan, tile_plan=tile_plan,
                 mfree_plan=mfree_plan, vstencil=vstencil,
-                vstencil_plain=vstencil_plain, NodeBlock=NodeBlock)
+                vstencil_plain=vstencil_plain, NodeBlock=NodeBlock,
+                symv=symv, symv_plain=symv_plain, symv_tile_rows=tile_rows)
 
     def s_pcg(h, b, tol, graph=True):
         return struct_pcg_solve(h, b, rel_tol=tol, graph=graph)
@@ -2228,7 +2343,8 @@ def main() -> int:
               ("contract.cu", "contract_R_kernel"),
               ("contract.cu", "contract_P_kernel"),
               ("blockrow.cu", "blockrow_kernel"),
-              ("vstencil.cu", "vstencil_chain_kernel"))}
+              ("vstencil.cu", "vstencil_chain_kernel"),
+              ("symv.cu", "symv_tile_kernel"))}
     log("build", ptxas=json.dumps(ptxas) if all(ptxas.values())
         else "not reported (library loaded from an earlier build)")
     if args.cards > 1:
@@ -2646,6 +2762,7 @@ def main() -> int:
         t0 = time.perf_counter()
         g_cpu = compile_hierarchy(ml, torch.float32, device="cpu")
         gcompile_s = time.perf_counter() - t0
+        Ac_g = ml.levels[-1].tg_data.Ac
         del ml
 
         formats = [(fmt(lv.A), fmt(lv.P), lv.fused) for lv in g_cpu.levels]
@@ -2675,11 +2792,13 @@ def main() -> int:
         records[-1]["case"] = "f32, 27 offsets, 10 roots, general fine level"
         del gx, gb, G0, lv0
         records += blockrow_kernels(g, kern, torch, np, device_profile, vec)
+        records += symv_kernels("symv_general", g, Ac_g, kern, torch,
+                                device_profile, vec)
         if full:
             gen = run_slice("general", g, g_cpu, b_gen, A_gen, torch, np,
                             vcycle_apply, g_pcg, device_profile, exact=False)
             check_launches("general", gen["launches"],
-                           ("smoother", "stencil", "blockrow"),
+                           ("smoother", "stencil", "blockrow", "symv"),
                            structured_only + VSTENCIL)
             check_launches("general blockrow", gen["modes"]["blockrow"],
                            tuple(BLOCKROW_MODES), ())
@@ -2701,6 +2820,8 @@ def main() -> int:
                 raise RuntimeError(f"general block-row routes {routes}, "
                                    f"{per_cycle} products a V-cycle, "
                                    f"{it_e} iterations")
+            coarse_checks("general", g, bd, it_e, vcycle_apply,
+                          device_profile, torch, before)
             # the kernels of one body replay of the PCG graph (813 before
             # the block-row kernel)
             runner = solve_graphs(g).items[
@@ -2736,6 +2857,9 @@ def main() -> int:
         ecompile_s = time.perf_counter() - t0
         counted = (TIMERS.counters.get("vstencil.bytes", 0)
                    - before.get("vstencil.bytes", 0))
+        symv_counted = (TIMERS.counters.get("symv.bytes", 0)
+                        - before.get("symv.bytes", 0))
+        Ac_e = ml.levels[-1].tg_data.Ac
         del ml
         log("elasticity", n=args.elasticity_n, ndof=e_cpu.n,
             coarse_dims=edims, device_setup=device_setup,
@@ -2753,20 +2877,27 @@ def main() -> int:
                                f"blocked={lv0.blocked}, roots "
                                f"{lv0.inv_taus}")
         log("elasticity", vstencil_bytes=counted,
-            node_block_bytes=nbytes(E0.vals), halo_nodes=E0.halo)
+            node_block_bytes=nbytes(E0.vals), halo_nodes=E0.halo,
+            symv_bytes=symv_counted, coarse_inv_bytes=nbytes(e.coarse_inv))
         if counted != nbytes(E0.vals):
             raise RuntimeError(f"vstencil.bytes {counted} != the node-block "
                                f"values' {nbytes(E0.vals)} bytes")
+        if symv_counted != nbytes(e.coarse_inv):
+            raise RuntimeError(f"symv.bytes {symv_counted} != the coarsest "
+                               f"tiles' {nbytes(e.coarse_inv)} bytes")
         vstencil_ragged(dev, torch, np, kern)
         records += elasticity_kernels(e, A_el, kern, torch, device_profile,
                                       vec)
+        records += symv_kernels("symv_elasticity", e, Ac_e, kern, torch,
+                                device_profile, vec)
         if full:
             b_el = np.random.default_rng(2).standard_normal(e.n)
             el = run_slice("elasticity", e, e_cpu, b_el, A_el, torch, np,
                            vcycle_apply, g_pcg, device_profile, exact=False,
                            cpu_pcg=False)
             check_launches("elasticity", el["launches"],
-                           ("vstencil_chain", "vstencil_spmv", "blockrow"),
+                           ("vstencil_chain", "vstencil_spmv", "blockrow",
+                            "symv"),
                            structured_only + ("smoother", "stencil"))
             bd = torch.as_tensor(b_el, dtype=torch.float32, device=dev)
             before = dict(TIMERS.counters)
@@ -2781,6 +2912,8 @@ def main() -> int:
                 raise RuntimeError(f"elasticity routes {routes}, {it_e} "
                                    "iterations: two node-block chains a "
                                    "V-cycle and no plain route expected")
+            coarse_checks("elasticity", e, bd, it_e, vcycle_apply,
+                          device_profile, torch, before)
             results["elasticity"] = el
         del e, e_cpu, E0, lv0
         leave_card(torch)
@@ -2890,6 +3023,7 @@ def main() -> int:
                "midmv": "capacity",
                "contract_R": "contract", "contract_P": "contract",
                "smoother": "general", "stencil_slab": "sharded",
+               "symv_general": "general", "symv_elasticity": "elasticity",
                **dict.fromkeys(VSTENCIL, "elasticity"),
                **dict.fromkeys((p[0] for p in BLOCKROW_PRODUCTS), "general"),
                "window_R_slab": "sharded", "window_P_slab": "sharded"}

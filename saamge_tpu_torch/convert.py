@@ -4,7 +4,8 @@
 general path) and reads its arrays through ``np.asarray``; formats are
 told apart by class name, so this module needs no JAX.  It covers DIA
 (stored or the blocked ``PallasDIA`` layout), ELL, banded and block-row
-levels, block-row and ELL transfer operators, and the Cholesky factor.
+levels, block-row and ELL transfer operators, and the coarsest inverse
+formed from the Cholesky factor.
 
 ``from_jax_arrays`` takes the fields of a saamge_tpu
 ``StructuredHierarchy`` on the flat fine layout as numpy arrays, so
@@ -59,7 +60,7 @@ from saamge_tpu_torch.ops.mfree import MatrixFreeQ1, q1_halo
 from saamge_tpu_torch.ops.midmv import pack_mid
 from saamge_tpu_torch.ops.sparse import DIA, ELL, Banded
 from saamge_tpu_torch.solve.compiled import (CompiledHierarchy,
-                                             CompiledLevel)
+                                             CompiledLevel, coarse_inverse)
 from saamge_tpu_torch.solve.structured import (BrickGeometry,
                                                StructuredHierarchy,
                                                mid_buffers)
@@ -180,7 +181,8 @@ def _format(M):
 
 def from_jax_compiled(hj, device="cpu") -> CompiledHierarchy:
     """The port's CompiledHierarchy from a saamge_tpu CompiledHierarchy
-    (same formats, values, roots and Cholesky factor)."""
+    (same formats, values and roots; the coarsest inverse formed from
+    its Cholesky factor as ``compile_hierarchy`` forms it)."""
     levels = []
     for lv in hj.levels:
         R = _format(lv.R)
@@ -189,4 +191,6 @@ def from_jax_compiled(hj, device="cpu") -> CompiledHierarchy:
         levels.append(CompiledLevel(
             _format(lv.A), P, R, _tensor(lv.dinv), np.asarray(lv.roots),
             np.asarray(lv.roots2), float(np.asarray(lv.weightfirst))))
-    return CompiledHierarchy(levels, _tensor(hj.chol)).to(device)
+    L = _tensor(hj.chol)
+    return CompiledHierarchy(levels, coarse_inverse(L, L.dtype, "cpu"),
+                             L.shape[0]).to(device)

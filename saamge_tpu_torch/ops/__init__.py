@@ -22,15 +22,18 @@ runs no Python.  The counters, by wrapper:
     mfree.route.tiled, mfree.route.flat       mfree_h and mfree_chain
     smoother.kernel                           smoother_h
     stencil.kernel                            stencil_h
+    symv.kernel                               symv
     vstencil.kernel, vstencil.kernel.<mode>   vstencil
     wavefront.kernel                          wavefront_smooth
     window.kernel.R, window.kernel.P          window_R, window_P
 
 ``<mode>`` is the pass's mode (spmv, residual, root; blockrow also
 transpose; vstencil spmv, residual, chain).  ``blockrow.plain``,
-``midmv.plain``, ``mfree.plain`` and ``vstencil.plain`` count the calls
-that take the plain route instead.  Two counters are not launch counts:
-``midmv.packed_bytes`` adds the bytes (values and index) of each compact
-mid packing when ``midmv.pack_mid`` builds it, and ``vstencil.bytes``
-the bytes of the node-block values (ops/sparse.NodeBlock) when
-``compile_hierarchy`` builds them."""
+``midmv.plain``, ``mfree.plain``, ``symv.plain`` and ``vstencil.plain``
+count the calls that take the plain route instead.  Three counters are
+not launch counts: ``midmv.packed_bytes`` adds the bytes (values and
+index) of each compact mid packing when ``midmv.pack_mid`` builds it,
+``symv.bytes`` the bytes of each lower-triangle packing when
+``symv.pack_lower`` builds it, and ``vstencil.bytes`` the bytes of the
+node-block values (ops/sparse.NodeBlock) when ``compile_hierarchy``
+builds them."""

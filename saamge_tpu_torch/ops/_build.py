@@ -88,11 +88,12 @@ def _declare(lib) -> None:
     lib.saamge_blockrow.argtypes = [I, P, P, P, I, P, I, P, P, P, F, P, P]
     lib.saamge_vstencil.argtypes = [I, P, P, I, I, I, P, I, I, P, P, P, P,
                                     P, P, P]
+    lib.saamge_symv.argtypes = [I, P, P, I, P, P, P]
     for name in ("saamge_stencil", "saamge_wavefront", "saamge_window_R",
                  "saamge_window_P", "saamge_mid_chain", "saamge_mfree",
                  "saamge_mfree_point", "saamge_mfree_chain",
                  "saamge_midmv", "saamge_contract_R", "saamge_contract_P",
-                 "saamge_blockrow", "saamge_vstencil"):
+                 "saamge_blockrow", "saamge_vstencil", "saamge_symv"):
         getattr(lib, name).restype = I
     lib.saamge_error_string.argtypes = [I]
     lib.saamge_error_string.restype = ctypes.c_char_p

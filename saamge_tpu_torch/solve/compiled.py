@@ -2,8 +2,8 @@
 
 Port of saamge_tpu/solve/compiled.py: polynomial smoothers (chains of
 roots), residual/restriction/prolongation products on DIA / banded /
-ELL / block-row device matrices, a dense Cholesky coarsest solve and a
-PCG around it, for any host setup product (``MLData``) of the port's
+ELL / block-row device matrices, an exact coarsest solve and a PCG
+around it, for any host setup product (``MLData``) of the port's
 host setup.
 
 Format choice (compiled.py:87-113 of the JAX package): coarse operators
@@ -34,6 +34,12 @@ a DIA operator (the residual of a W-cycle's later visits, the PCG
 operator) are the stencil kernel (ops/stencil.py); an f64 DIA product
 is plain torch, as XLA's is in JAX.
 
+The coarsest solve applies the explicit inverse of the SPD coarsest
+operator, formed in f64 from the host f64 Cholesky factor and rounded to
+the hierarchy's dtype, as one product with its lower-triangle tiles
+(ops/symv.py, csrc/symv.cu); the JAX package solves the factor twice
+(``solve_triangular``).
+
 Reference counterparts: tg_cycle_atb (tg.cpp:91), smpr_sym_poly /
 smpr_compute_poly (smpr.cpp:213, smpr.hpp:319), the MFEM CGSolver
 (mfem_addons.cpp:106), the HypreDirect coarse solve (tg.cpp:61)."""
@@ -52,6 +58,7 @@ from saamge_tpu_torch.ops.smoother import inv_taus_f32, smoother_h
 from saamge_tpu_torch.ops.sparse import (DIA, ELL, NodeBlock, device_matrix,
                                          dia_spmv)
 from saamge_tpu_torch.ops.stencil import stencil_h
+from saamge_tpu_torch.ops.symv import pack_lower, symv
 from saamge_tpu_torch.ops.vstencil import vstencil
 from saamge_tpu_torch.solve.device_pcg import graphed, pcg
 from saamge_tpu_torch.utils.logging import TIMERS
@@ -155,14 +162,15 @@ class CompiledLevel(torch.nn.Module):
 
 class CompiledHierarchy(torch.nn.Module):
     """Static solve-phase hierarchy; build once from an MLData with
-    ``compile_hierarchy``.  ``chol`` is the dense lower Cholesky factor
-    of the coarsest operator."""
+    ``compile_hierarchy``.  ``coarse_inv`` is the inverse of the
+    coarsest operator (``coarse_n`` dofs) as the lower-triangle tiles of
+    ops/symv.pack_lower."""
 
-    def __init__(self, levels, chol: torch.Tensor):
+    def __init__(self, levels, coarse_inv: torch.Tensor, coarse_n: int):
         super().__init__()
         self.levels = torch.nn.ModuleList(levels)
-        self.register_buffer("chol", chol)
-        self.coarse_n = int(chol.shape[0])
+        self.register_buffer("coarse_inv", coarse_inv)
+        self.coarse_n = int(coarse_n)
 
     @property
     def n(self) -> int:
@@ -181,9 +189,19 @@ def _level(A: sp.spmatrix, tg, dtype, A_dev, P_dev=None, R_dev=None):
         pd.roots, roots2, pd.weightfirst)
 
 
-def _chol(Ac: sp.spmatrix, dtype) -> torch.Tensor:
-    """Host f64 Cholesky factor of the coarsest operator."""
-    return torch.as_tensor(np.linalg.cholesky(Ac.toarray())).to(dtype)
+def coarse_inverse(L: torch.Tensor, dtype, device) -> torch.Tensor:
+    """The packed inverse (ops/symv.pack_lower) of L L^T, L a lower
+    Cholesky factor: inverted in f64 on ``device``, rounded to ``dtype``,
+    then packed there."""
+    inv = torch.cholesky_inverse(L.to(device=device, dtype=torch.float64))
+    return pack_lower(inv.to(dtype))
+
+
+def _coarse_inverse(Ac: sp.spmatrix, dtype, device) -> torch.Tensor:
+    """``coarse_inverse`` of the host f64 Cholesky factor of the
+    coarsest operator."""
+    return coarse_inverse(torch.as_tensor(np.linalg.cholesky(Ac.toarray())),
+                          dtype, device)
 
 
 @TIMERS.phase("compile")
@@ -195,7 +213,8 @@ def compile_hierarchy(ml, dtype=torch.float32, prefer_dia: bool = True,
     the phase ``compile`` of utils/logging.TIMERS, its stages phases
     inside it: the levels' operators, restrictions and prolongations
     (``compile.levels``), the host Cholesky factor of the coarsest
-    operator (``compile.coarsest_inverse``) and the module
+    operator and its packed inverse (``compile.coarsest_inverse``: the
+    inverse formed on ``device``) and the module
     (``compile.module``: the copy to ``device``)."""
     levels = []
     with TIMERS.phase("compile.levels"):
@@ -227,10 +246,11 @@ def compile_hierarchy(ml, dtype=torch.float32, prefer_dia: bool = True,
                         tg.restr, np.asarray(offs, np.int64), dtype)
                     P_dev = TransposedBlockRow(R_dev)
             levels.append(_level(level.A, tg, dtype, A_dev, P_dev, R_dev))
+    Ac = ml.levels[-1].tg_data.Ac
     with TIMERS.phase("compile.coarsest_inverse"):
-        chol = _chol(ml.levels[-1].tg_data.Ac, dtype)
+        inv = _coarse_inverse(Ac, dtype, device)
     with TIMERS.phase("compile.module"):
-        return CompiledHierarchy(levels, chol).to(device)
+        return CompiledHierarchy(levels, inv, Ac.shape[0]).to(device)
 
 
 def compile_two_level(A: sp.spmatrix, tg, dtype=torch.float32,
@@ -238,7 +258,8 @@ def compile_two_level(A: sp.spmatrix, tg, dtype=torch.float32,
                       device="cuda") -> CompiledHierarchy:
     """Compile a bare TGData (two-level / algebraic path)."""
     lv = _level(A, tg, dtype, device_matrix(A, dtype, prefer_dia))
-    return CompiledHierarchy([lv], _chol(tg.Ac, dtype)).to(device)
+    return CompiledHierarchy([lv], _coarse_inverse(tg.Ac, dtype, device),
+                             tg.Ac.shape[0]).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +290,8 @@ def smooth(lv: CompiledLevel, b: torch.Tensor,
 
 
 def coarse_solve(h: CompiledHierarchy, b: torch.Tensor) -> torch.Tensor:
-    y = torch.linalg.solve_triangular(h.chol, b[:, None], upper=False)
-    return torch.linalg.solve_triangular(h.chol.T, y, upper=True)[:, 0]
+    """The exact coarsest solve: one product with the packed inverse."""
+    return symv(h.coarse_inv, b)
 
 
 def vcycle(h: CompiledHierarchy, b: torch.Tensor, x: torch.Tensor,

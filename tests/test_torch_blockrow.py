@@ -271,7 +271,8 @@ def _grown(after, before):
 def test_counters(setups, problem):
     """On the CPU every block-row product of a V-cycle is one count of
     ``blockrow.plain`` and none of ``blockrow.kernel``: each root and
-    the residual on a block-row operator, each block-row R and P."""
+    the residual on a block-row operator, each block-row R and P; its
+    coarsest solve is one count of ``symv.plain``."""
     h = C.compile_hierarchy(setups[problem], F64, device="cpu")
     per_cycle = 0
     for lv in h.levels:
@@ -282,7 +283,8 @@ def test_counters(setups, problem):
     assert per_cycle >= 3
     before = dict(TIMERS.counters)
     C.vcycle_apply(h, torch.ones(h.n, dtype=F64))
-    assert _grown(TIMERS.counters, before) == {"blockrow.plain": per_cycle}
+    assert _grown(TIMERS.counters, before) == {"blockrow.plain": per_cycle,
+                                               "symv.plain": 1}
     before = dict(TIMERS.counters)
     M = h.levels[0].R
     blockrow(M, torch.ones(M.shape[1], dtype=F64))

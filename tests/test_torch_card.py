@@ -99,3 +99,27 @@ def test_vstencil_kernel_equals_plain(card, dims, k):
         got = got if isinstance(got, tuple) else (got,)
         for g, r in zip(got, ref):
             assert torch.equal(g.cpu(), r), mode
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 5, 127, 128, 129, 367, 700, 1000])
+def test_symv_kernel_equals_plain(card, n, dtype):
+    """csrc/symv.cu on lower-triangle tiles (one tile, ragged and whole
+    tile rows) gives the bits of symv_plain on the CPU: the same products
+    and sums in the same order, each rounded apart; two launches repeat
+    them, and ``symv.kernel`` counts each product."""
+    from saamge_tpu_torch.ops.symv import pack_lower, symv, symv_plain
+    from saamge_tpu_torch.utils.logging import TIMERS
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n))
+    tiles = pack_lower(torch.as_tensor(M + M.T, dtype=dtype))
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype)
+    ref = symv_plain(tiles, x)
+    before = TIMERS.counters.get("symv.kernel", 0)
+    tc, xc = tiles.to(card), x.to(card)
+    y1, y2 = symv(tc, xc), symv(tc, xc)
+    torch.cuda.synchronize(card)
+    assert TIMERS.counters["symv.kernel"] - before == 2
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1.cpu(), ref)

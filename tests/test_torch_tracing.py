@@ -108,7 +108,8 @@ def test_eager_solve_counts(path, structured, general):
     its returned iterations to ``pcg.iterations``; an eager solve
     captures nothing.  On the general path it also counts its V-cycles'
     block-row products (``blockrow.plain`` on the CPU): the prologue's
-    V-cycle and one an iteration, each as many as one V-cycle alone."""
+    V-cycle and one an iteration, each as many as one V-cycle alone, and
+    one coarsest product (``symv.plain``) each."""
     h, b, _, solve = _path(path, structured, general)
     before = dict(TIMERS.counters)
     if path == "general":
@@ -120,6 +121,7 @@ def test_eager_solve_counts(path, structured, general):
     grown = _grown(TIMERS.counters, before)
     assert grown.pop("blockrow.plain", 0) == per_cycle * (it + 1)
     assert per_cycle > 0 if path == "general" else per_cycle == 0
+    assert grown.pop("symv.plain", 0) == (it + 1 if path == "general" else 0)
     assert grown == {"pcg.iterations": it}
     assert _grown(TIMERS.counts, calls) == {"pcg.prologue": 1,
                                             "pcg.loop": 1}
